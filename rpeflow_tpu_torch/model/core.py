@@ -1,5 +1,4 @@
-"""RPEFlow core network, evaluation path (counterpart of
-rpeflow_tpu/model/core.py with ``train=False, compute_mi=False``).
+"""RPEFlow core network (counterpart of rpeflow_tpu/model/core.py).
 
 Two PWC branches (2-D image + event pyramids, 3-D point pyramid) fused by
 MDTA cross-attention blocks, decoded coarse to fine. Channels-last
@@ -7,6 +6,15 @@ throughout. Attribute names follow the upstream module tree, so
 ``state_dict`` keys read ``pwc_fusion_core.pyramid_feat_fusers_2d.1...``;
 the level-indexed ``ModuleList``s hold a parameter-free placeholder at
 index 0, where the decode never goes.
+
+``train`` (batch norm on batch statistics) makes the encode and the pyramid
+fusers run per frame, as the reference applies them; at evaluation the two
+frames share one stacked call, which is exact with running statistics.
+``compute_mi`` adds the mutual-information terms of the six fusers, drawn
+from the ``generator`` passed down. Each fuser returns ``(features, mi)``.
+Gradients stop where the JAX package stops them (``stop_gradient`` there,
+``.detach()`` here). The remat units of the JAX model are activation
+checkpoints here: every ``CrossTransformerBlock`` and the convex upsampler.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.layers import ConvNormAct, conv2d_nhwc, pointwise
 from ..nn.mdta import CrossTransformerBlock
@@ -29,6 +38,10 @@ from ..ops.knn import k_nearest_neighbor
 from ..ops.sample import backwarp_2d, grid_sample_2d, mesh_grid
 
 
+def _no_mi(like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=like.device)
+
+
 class PyramidFeatureFuser2D(nn.Module):
     """3-D -> 2-D pyramid fusion."""
 
@@ -38,9 +51,10 @@ class PyramidFeatureFuser2D(nn.Module):
         self.mi = MutualInfoReg(c2d, c2d // 2, 2, n_spatial=2)
         self.fuse = CrossTransformerBlock(c2d, num_heads, n_spatial=2)
 
-    def forward(self, xy, feat_2d, feat_3d, nn_proj):
+    def forward(self, xy, feat_2d, feat_3d, nn_proj, compute_mi=False, generator=None):
         out = self.mlps[0](project_feat_with_nn_corr(xy, feat_2d, feat_3d, nn_proj[..., 0]))
-        return self.fuse(feat_2d, out)
+        mi = self.mi(feat_2d, out, generator=generator) if compute_mi else _no_mi(out)
+        return self.fuse(feat_2d, out), mi
 
 
 class PyramidFeatureFuser3D(nn.Module):
@@ -52,9 +66,10 @@ class PyramidFeatureFuser3D(nn.Module):
         self.mi = MutualInfoReg(c3d, c3d // 2, 2, n_spatial=1)
         self.fuse = CrossTransformerBlock(c3d, num_heads, n_spatial=1)
 
-    def forward(self, xy, feat_2d, feat_3d):
-        out = self.mlps[0](grid_sample_2d(feat_2d, xy, "zeros"))
-        return self.fuse(feat_3d, out)
+    def forward(self, xy, feat_2d, feat_3d, compute_mi=False, generator=None):
+        out = self.mlps[0](grid_sample_2d(feat_2d, xy, "zeros").detach())
+        mi = self.mi(feat_3d, out, generator=generator) if compute_mi else _no_mi(out)
+        return self.fuse(feat_3d, out), mi
 
 
 class CorrFeatureFuser2D(nn.Module):
@@ -71,12 +86,17 @@ class CorrFeatureFuser2D(nn.Module):
         self.fuse = CrossTransformerBlock(corr_ch, num_heads, n_spatial=2)
 
     def forward(self, xy, feat_2d, feat_3d, efeat_2d, last_flow_2d, last_flow_3d_to_2d,
-                nn_proj):
+                nn_proj, compute_mi=False, generator=None):
         feat_3d = torch.cat([feat_3d, last_flow_3d_to_2d.to(feat_3d.dtype)], dim=-1)
         f32d = project_feat_with_nn_corr(xy, feat_2d, feat_3d, nn_proj[..., 0])
-        f32d = torch.cat([f32d[..., :-2], f32d[..., -2:] - last_flow_2d], dim=-1)
+        f32d = torch.cat([f32d[..., :-2], f32d[..., -2:] - last_flow_2d.detach()], dim=-1)
+        if compute_mi:
+            mi = self.mi(feat_2d, self.head_3d(f32d), self.head_event(efeat_2d),
+                         generator=generator)
+        else:
+            mi = _no_mi(f32d)
         out = self.mlps[1](self.mlps[0](torch.cat([f32d, efeat_2d], dim=-1)))
-        return self.fuse(feat_2d, out)
+        return self.fuse(feat_2d, out), mi
 
 
 class CorrFeatureFuser3D(nn.Module):
@@ -92,13 +112,17 @@ class CorrFeatureFuser3D(nn.Module):
         self.fuse = CrossTransformerBlock(c3d, num_heads, n_spatial=1)
 
     def forward(self, xy, feat_corr_2d, feat_corr_3d, efeat_2d, last_flow_3d,
-                last_flow_2d_to_3d):
+                last_flow_2d_to_3d, compute_mi=False, generator=None):
         feat = torch.cat([feat_corr_2d, last_flow_2d_to_3d.to(feat_corr_2d.dtype)], dim=-1)
         f23 = grid_sample_2d(feat, xy, "zeros")
-        e23 = grid_sample_2d(efeat_2d, xy, "zeros")
-        f23 = torch.cat([f23[..., :-2], f23[..., -2:] - last_flow_3d[..., :2]], dim=-1)
+        e23 = grid_sample_2d(efeat_2d, xy, "zeros").detach()
+        f23 = torch.cat([f23[..., :-2], f23[..., -2:] - last_flow_3d[..., :2]], dim=-1).detach()
+        if compute_mi:
+            mi = self.mi(feat_corr_3d, self.head_2d(f23), e23, generator=generator)
+        else:
+            mi = _no_mi(f23)
         out = self.mlps[1](self.mlps[0](torch.cat([f23, e23], dim=-1)))
-        return self.fuse(feat_corr_3d, out)
+        return self.fuse(feat_corr_3d, out), mi
 
 
 class DecoderFeatureFuser2D(nn.Module):
@@ -110,9 +134,10 @@ class DecoderFeatureFuser2D(nn.Module):
         self.mi = MutualInfoReg(c2d, c2d // 2, 2, n_spatial=2)
         self.fuse = CrossTransformerBlock(c2d, num_heads, n_spatial=2)
 
-    def forward(self, xy, feat_2d, feat_3d, nn_proj):
+    def forward(self, xy, feat_2d, feat_3d, nn_proj, compute_mi=False, generator=None):
         out = self.mlps[0](project_feat_with_nn_corr(xy, feat_2d, feat_3d, nn_proj[..., 0]))
-        return self.fuse(feat_2d, out)
+        mi = self.mi(feat_2d, out, generator=generator) if compute_mi else _no_mi(out)
+        return self.fuse(feat_2d, out), mi
 
 
 class DecoderFeatureFuser3D(nn.Module):
@@ -124,8 +149,10 @@ class DecoderFeatureFuser3D(nn.Module):
         self.mi = MutualInfoReg(c3d, c3d // 2, 2, n_spatial=1)
         self.fuse = CrossTransformerBlock(c3d, num_heads, n_spatial=1)
 
-    def forward(self, xy, feat_2d, feat_3d):
-        return self.fuse(feat_3d, self.mlps[0](grid_sample_2d(feat_2d, xy, "zeros")))
+    def forward(self, xy, feat_2d, feat_3d, compute_mi=False, generator=None):
+        out = self.mlps[0](grid_sample_2d(feat_2d, xy, "zeros").detach())
+        mi = self.mi(feat_3d, out, generator=generator) if compute_mi else _no_mi(out)
+        return self.fuse(feat_3d, out), mi
 
 
 # Per-level channel and head tables (upstream RPEFlow_core.py).
@@ -196,12 +223,16 @@ class RPEFlowCore(nn.Module):
         self.conv_last_2d = nn.Conv2d(ff2d, 2, 3, padding=1)
         self.conv_last_3d = nn.Conv1d(64, 3, 1)
 
+    def encode(self, image, xyzs):
+        """One frame's image pyramid and point pyramid."""
+        return self.feature_pyramid_2d(image), self.feature_pyramid_3d(xyzs)
+
     def encode_both(self, image1, image2, xyzs1, xyzs2):
         """Both frames through the shared pyramids as one 2B batch (exact at
         evaluation: batch norm uses running statistics)."""
         b = image1.shape[0]
-        feats_2d = self.feature_pyramid_2d(torch.cat([image1, image2], dim=0))
-        feats_3d = self.feature_pyramid_3d(
+        feats_2d, feats_3d = self.encode(
+            torch.cat([image1, image2], dim=0),
             [torch.cat([x1, x2], dim=0) for x1, x2 in zip(xyzs1, xyzs2)])
         return ([f[:b] for f in feats_2d], [f[b:] for f in feats_2d],
                 [f[:b] for f in feats_3d], [f[b:] for f in feats_3d])
@@ -211,10 +242,13 @@ class RPEFlowCore(nn.Module):
 
     def decode_level(self, level: int, xyz1, xyz2, feat1_2d, feat2_2d, feat1_3d, feat2_3d,
                      efeat_2d, xyz1_up, camera: CameraInfo,
-                     prev: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+                     prev: Optional[Dict[str, torch.Tensor]] = None, train: bool = False,
+                     compute_mi: bool = False,
+                     generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """One coarse-to-fine decode iteration; ``prev`` holds the coarser
         level's ``flow_2d``, ``flow_3d``, ``flow_feat_2d``, ``flow_feat_3d``
-        (None at the coarsest level)."""
+        (None at the coarsest level). The result also holds the level's MI
+        sums ``mi2d`` and ``mi3d``."""
         b, h, w = feat1_2d.shape[:3]
         n_points = xyz1.shape[1]
         dev = feat1_2d.device
@@ -226,15 +260,25 @@ class RPEFlowCore(nn.Module):
         xy_s = torch.cat([xy1, xy2], dim=0)
         grid = mesh_grid(h, w, device=dev).reshape(1, h * w, 2).expand(2 * b, h * w, 2)
         nn_proj = k_nearest_neighbor(xy_s, grid, 1)  # [2B, HW, 1]
-        nn_proj1 = nn_proj[:b]
+        nn_proj1, nn_proj2 = nn_proj[:b], nn_proj[b:]
         knn_1in1 = k_nearest_neighbor(xyz1, xyz1, self.k)
 
-        f2d_s = torch.cat([feat1_2d, feat2_2d], dim=0)
-        f3d_s = torch.cat([feat1_3d, feat2_3d], dim=0)
-        fs_2d = self.pyramid_feat_fusers_2d[level](xy_s, f2d_s, f3d_s, nn_proj)
-        fs_3d = self.pyramid_feat_fusers_3d[level](xy_s, f2d_s, f3d_s)
-        feat1_2d, feat2_2d = fs_2d[:b], fs_2d[b:]
-        feat1_3d, feat2_3d = fs_3d[:b], fs_3d[b:]
+        mi = dict(compute_mi=compute_mi, generator=generator)
+        if not train and not compute_mi:
+            f2d_s = torch.cat([feat1_2d, feat2_2d], dim=0)
+            f3d_s = torch.cat([feat1_3d, feat2_3d], dim=0)
+            fs_2d, mi2d_1 = self.pyramid_feat_fusers_2d[level](xy_s, f2d_s, f3d_s, nn_proj)
+            fs_3d, mi3d_1 = self.pyramid_feat_fusers_3d[level](xy_s, f2d_s, f3d_s)
+            mi2d_2, mi3d_2 = mi2d_1, mi3d_1
+            feat1_2d, feat2_2d = fs_2d[:b], fs_2d[b:]
+            feat1_3d, feat2_3d = fs_3d[:b], fs_3d[b:]
+        else:
+            fusers_2d, fusers_3d = self.pyramid_feat_fusers_2d[level], self.pyramid_feat_fusers_3d[level]
+            f1_2d, mi2d_1 = fusers_2d(xy1, feat1_2d, feat1_3d, nn_proj1, **mi)
+            f2_2d, mi2d_2 = fusers_2d(xy2, feat2_2d, feat2_3d, nn_proj2, **mi)
+            f1_3d, mi3d_1 = fusers_3d(xy1, feat1_2d, feat1_3d, **mi)
+            f2_3d, mi3d_2 = fusers_3d(xy2, feat2_2d, feat2_3d, **mi)
+            feat1_2d, feat2_2d, feat1_3d, feat2_3d = f1_2d, f2_2d, f1_3d, f2_3d
 
         if prev is None:
             last_flow_2d = torch.zeros(b, h, w, 2, device=dev)
@@ -260,10 +304,11 @@ class RPEFlowCore(nn.Module):
 
         last_flow_3d_to_2d = last_flow_3d[..., :2] * scale
         last_flow_2d_to_3d = last_flow_2d / scale
-        fc2d = self.corr_feat_fusers_2d[level](xy1, feat_corr_2d, feat_corr_3d, efeat_2d,
-                                               last_flow_2d, last_flow_3d_to_2d, nn_proj1)
-        fc3d = self.corr_feat_fusers_3d[level](xy1, feat_corr_2d, feat_corr_3d, efeat_2d,
-                                               last_flow_3d, last_flow_2d_to_3d)
+        fc2d, mi2d_3 = self.corr_feat_fusers_2d[level](
+            xy1, feat_corr_2d, feat_corr_3d, efeat_2d, last_flow_2d, last_flow_3d_to_2d,
+            nn_proj1, **mi)
+        fc3d, mi3d_3 = self.corr_feat_fusers_3d[level](
+            xy1, feat_corr_2d, feat_corr_3d, efeat_2d, last_flow_3d, last_flow_2d_to_3d, **mi)
 
         feat1_2d = self.feature_aligners_2d[level](feat1_2d)
         feat1_3d = self.feature_aligners_3d[level](feat1_3d)
@@ -275,8 +320,9 @@ class RPEFlowCore(nn.Module):
         flow_feat_2d = self.flow_estimator_2d(x_2d)
         flow_feat_3d = self.flow_estimator_3d(xyz1, x_3d, knn_1in1)
 
-        ff2d = self.estimator_feat_fuser_2d(xy1, flow_feat_2d, flow_feat_3d, nn_proj1)
-        ff3d = self.estimator_feat_fuser_3d(xy1, flow_feat_2d, flow_feat_3d)
+        ff2d, mi2d_4 = self.estimator_feat_fuser_2d(xy1, flow_feat_2d, flow_feat_3d, nn_proj1,
+                                                    **mi)
+        ff3d, mi3d_4 = self.estimator_feat_fuser_3d(xy1, flow_feat_2d, flow_feat_3d, **mi)
 
         flow_2d = last_flow_2d + conv2d_nhwc(ff2d, self.conv_last_2d)
         flow_3d = last_flow_3d + pointwise(ff3d, self.conv_last_3d.weight, self.conv_last_3d.bias)
@@ -287,7 +333,12 @@ class RPEFlowCore(nn.Module):
             "flow_feat_2d": flow_feat_2d,
             "flow_feat_3d": ff3d,
             "last_flow_3d": last_flow_3d,
+            "mi2d": mi2d_1 + mi2d_2 + mi2d_3 + mi2d_4,
+            "mi3d": mi3d_1 + mi3d_2 + mi3d_3 + mi3d_4,
         }
+
+    def _convex_upsample(self, flow_feat, flow):
+        return convex_upsample(flow, self.up_mask_head_2d(flow_feat), 4)
 
     def decode_post(self, flows_2d, flows_3d, flow_feat_2d_finest, xyzs1, up_flow_cache):
         """Final upsampling; lists arrive coarse -> fine and return fine ->
@@ -295,7 +346,11 @@ class RPEFlowCore(nn.Module):
         ``last_flow_3d``, the interpolation the finest upsample would redo."""
         flows_2d = list(flows_2d)[::-1]
         flows_3d = list(flows_3d)[::-1]
-        flows_2d[0] = convex_upsample(flows_2d[0], self.up_mask_head_2d(flow_feat_2d_finest), 4)
+        if torch.is_grad_enabled():
+            flows_2d[0] = checkpoint(self._convex_upsample, flow_feat_2d_finest, flows_2d[0],
+                                     use_reentrant=False)
+        else:
+            flows_2d[0] = self._convex_upsample(flow_feat_2d_finest, flows_2d[0])
         for i in range(1, len(flows_2d)):
             h, w = flows_2d[i].shape[1:3]
             flows_2d[i] = resize_bilinear_ac(flows_2d[i] * 4.0, h * 4, w * 4)
@@ -305,20 +360,28 @@ class RPEFlowCore(nn.Module):
         return flows_2d, flows_3d
 
     def decode(self, xyzs1, xyzs2, feats1_2d, feats2_2d, feats1_3d, feats2_3d, efeats_2d,
-               camera: CameraInfo):
-        """Levels ``len(xyzs1)-1 .. 1``; returns (flows_2d, flows_3d), fine -> coarse."""
+               camera: CameraInfo, train: bool = False, compute_mi: bool = False,
+               generator: Optional[torch.Generator] = None):
+        """Levels ``len(xyzs1)-1 .. 1``; returns (flows_2d, flows_3d, mi_loss),
+        flows fine -> coarse, ``mi_loss = sum (10 mi2d + mi3d) 0.85^(level-1)``."""
         flows_2d: List[torch.Tensor] = []
         flows_3d: List[torch.Tensor] = []
         up_flow_cache: Dict[int, torch.Tensor] = {}
+        mi_loss = torch.zeros((), device=feats1_2d[-1].device)
         prev = None
         for level in range(len(xyzs1) - 1, 0, -1):
             out = self.decode_level(
                 level, xyzs1[level], xyzs2[level], feats1_2d[level], feats2_2d[level],
                 feats1_3d[level], feats2_3d[level], efeats_2d[level],
-                xyzs1[level + 1] if prev is not None else None, camera, prev=prev)
+                xyzs1[level + 1] if prev is not None else None, camera, prev=prev,
+                train=train, compute_mi=compute_mi, generator=generator)
             if prev is not None:
                 up_flow_cache[level] = out["last_flow_3d"]
             flows_2d.append(out["flow_2d"])
             flows_3d.append(out["flow_3d"])
+            if compute_mi:
+                mi_loss = mi_loss + (10.0 * out["mi2d"] + out["mi3d"]) * (0.85 ** (level - 1))
             prev = out
-        return self.decode_post(flows_2d, flows_3d, prev["flow_feat_2d"], xyzs1, up_flow_cache)
+        flows_2d, flows_3d = self.decode_post(flows_2d, flows_3d, prev["flow_feat_2d"], xyzs1,
+                                              up_flow_cache)
+        return flows_2d, flows_3d, mi_loss

@@ -1,22 +1,25 @@
-"""RPEFlow evaluation forward and metrics (counterpart of
-rpeflow_tpu/model/rpeflow.py with ``train=False, compute_mi=False``).
+"""RPEFlow forward, losses and metrics (counterpart of
+rpeflow_tpu/model/rpeflow.py).
 
 Inputs are channels-last tensors on one device:
   images       [B, H, W, 6]   uint8 or float, both frames stacked
   pcs          [B, N, 6]      pc1 | pc2
   event_voxel  [B, H, W, 2*bins]
   intrinsics   [B, 3]         (f, cx, cy)
+  flow_2d      [B, H, W, 2|3] target (loss only; 3rd channel = valid mask)
+  flow_3d      [B, N, 3|4]    target (loss only; 4th channel = valid mask)
 The config is read by attribute access only, so a YAML ``ConfigNode`` and a
 nested ``SimpleNamespace`` both work.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
+from ..nn.losses import supervised_loss_2d, supervised_loss_3d
 from ..nn.pyramid3d import build_pc_pyramid
 from ..ops.geometry import CameraInfo, parallel2perspect, perspect2parallel
 from ..ops.interp import resize_flow2d, resize_to_64x
@@ -26,10 +29,12 @@ DEFAULT_N_SAMPLES = (4096, 2048, 1024, 512, 256)
 
 
 class RPEFlow(nn.Module):
-    """Joint 2-D optical flow + 3-D scene flow model, evaluation only.
+    """Joint 2-D optical flow + 3-D scene flow model.
 
-    It is built in eval mode, and its forward refuses training mode: the
-    training path (losses, MI, batch-norm statistics) is not ported yet.
+    It is built in eval mode. In training mode (``.train()``) batch norm
+    uses batch statistics and the frames are encoded and fused one at a
+    time, as in the reference; with ``cfgs.freeze_bn`` the batch norms stay
+    in eval mode and the model computes as at evaluation.
     """
 
     def __init__(self, cfgs: Any, n_samples_list: Sequence[int] = DEFAULT_N_SAMPLES):
@@ -39,6 +44,14 @@ class RPEFlow(nn.Module):
         self.pwc_fusion_core = RPEFlowCore(cfgs.pwc2d, cfgs.pwc3d,
                                            n_levels=len(self.n_samples_list) + 1)
         self.eval()
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if mode and getattr(self.cfgs, "freeze_bn", False):
+            for m in self.modules():
+                if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                    m.eval()
+        return self
 
     def _cameras(self, inputs):
         origin_h, origin_w = inputs["images"].shape[1:3]
@@ -53,9 +66,13 @@ class RPEFlow(nn.Module):
         paral = CameraInfo("parallel", ph, pw, None, (pw - 1) / 2, (ph - 1) / 2)
         return persp, paral, paral
 
-    def forward(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError("training slice: call .eval() for the eval forward")
+    def forward(self, inputs: Dict[str, torch.Tensor], compute_mi: bool = False,
+                compute_loss: bool = False, generator: Optional[torch.Generator] = None):
+        """Returns ``{"flow_2d", "flow_3d"}``; with ``compute_loss`` (and
+        targets in ``inputs``), ``(outputs, {"loss": loss, "scalar_summary":
+        {...}})`` as the JAX model does. ``compute_mi`` adds the MI
+        regulariser, its noise drawn from ``generator``."""
+        train = self.training and not getattr(self.cfgs, "freeze_bn", False)
         images = inputs["images"].float() / 255.0
         pc1 = inputs["pcs"][..., :3].float()
         pc2 = inputs["pcs"][..., 3:].float()
@@ -71,18 +88,37 @@ class RPEFlow(nn.Module):
             pc2 = perspect2parallel(pc2, persp, paral)
 
         core = self.pwc_fusion_core
-        xyzs1, xyzs2, _, _ = build_pc_pyramid(pc1, pc2, self.n_samples_list)
-        feats1_2d, feats2_2d, feats1_3d, feats2_3d = core.encode_both(image1, image2,
-                                                                      xyzs1, xyzs2)
+        xyzs1, xyzs2, indices1, _ = build_pc_pyramid(pc1, pc2, self.n_samples_list)
+        if train:
+            feats1_2d, feats1_3d = core.encode(image1, xyzs1)
+            feats2_2d, feats2_3d = core.encode(image2, xyzs2)
+        else:
+            feats1_2d, feats2_2d, feats1_3d, feats2_3d = core.encode_both(image1, image2,
+                                                                          xyzs1, xyzs2)
         efeats_2d = core.encode_event(event_voxel)
-        flows_2d, flows_3d = core.decode(xyzs1, xyzs2, feats1_2d, feats2_2d, feats1_3d,
-                                         feats2_3d, efeats_2d, decode_cam)
-        flow_3d = flows_3d[0]
+        flows_2d, flows_3d, mi_loss = core.decode(
+            xyzs1, xyzs2, feats1_2d, feats2_2d, feats1_3d, feats2_3d, efeats_2d, decode_cam,
+            train=train, compute_mi=compute_mi, generator=generator)
         if ids:
-            flow_3d = (parallel2perspect(xyzs1[0] + flow_3d, persp, paral)
-                       - parallel2perspect(xyzs1[0], persp, paral))
-        return {"flow_2d": resize_flow2d(flows_2d[0], origin_h, origin_w),
-                "flow_3d": flow_3d}
+            flows_3d = [parallel2perspect(xyz1 + f, persp, paral)
+                        - parallel2perspect(xyz1, persp, paral)
+                        for xyz1, f in zip(xyzs1, flows_3d)]
+        outputs = {"flow_2d": resize_flow2d(flows_2d[0], origin_h, origin_w),
+                   "flow_3d": flows_3d[0]}
+        if not compute_loss or "flow_2d" not in inputs or "flow_3d" not in inputs:
+            return outputs
+
+        target_2d = inputs["flow_2d"].float()
+        target_3d = inputs["flow_3d"].float()
+        loss_2d = supervised_loss_2d(flows_2d, target_2d, self.cfgs.loss2d)
+        loss_3d = supervised_loss_3d(flows_3d, target_3d, self.cfgs.loss3d, indices1) * 10.0
+        final_mi_loss = mi_loss * 0.01
+        loss = loss_2d + loss_3d + final_mi_loss
+        summary = {"loss": loss.detach(), "loss_2d": loss_2d.detach(),
+                   "loss_3d": loss_3d.detach(), "mi_loss": final_mi_loss.detach()}
+        summary.update(flow_metrics(outputs["flow_2d"], outputs["flow_3d"], target_2d,
+                                    target_3d))
+        return outputs, {"loss": loss, "scalar_summary": summary}
 
 
 def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
@@ -111,9 +147,11 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
+@torch.no_grad()
 def flow_metrics(flow_2d: torch.Tensor, flow_3d: torch.Tensor, target_2d: torch.Tensor,
                  target_3d: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """EPE / accuracy / outlier metrics: batch mean of per-sample masked means."""
+    """EPE / accuracy / outlier metrics: batch mean of per-sample masked
+    means, without gradient."""
     flow_2d = flow_2d.float()
     flow_3d = flow_3d.float()
     if target_2d.shape[-1] == 3:
@@ -141,3 +179,10 @@ def flow_metrics(flow_2d: torch.Tensor, flow_3d: torch.Tensor, target_2d: torch.
         "epe3d": (epe3d_map.sum(1) / cnt3d).mean(),
         "acc3d_5cm": (((epe3d_map < 0.05) * m3d).sum(1) / cnt3d).mean(),
     }
+
+
+def is_better(curr_summary: Optional[dict], best_summary: Optional[dict]) -> bool:
+    """Checkpoint selection rule: a lower validation ``outlier2d``."""
+    if best_summary is None:
+        return True
+    return float(curr_summary["outlier2d"]) < float(best_summary["outlier2d"])

@@ -4,9 +4,11 @@ Activations stay channels-last (``[B, N, C]`` points, ``[B, H, W, C]``
 images) as in the JAX package; parameters carry the upstream torch names
 and layouts (``conv_fn.weight [O, I, k(, k)]``, BatchNorm ``norm_fn``), so
 JAX-exported and upstream checkpoints load with ``strict=True``. 1x1 convs
-run as a matmul over the channel axis; larger kernels run ``F.conv2d`` on a
-channels-last view. Evaluation only: batch norm always uses its running
-statistics. The JAX package's space-to-depth first conv (``_S2DConv``) is a
+(strided ones on the strided slice) run as a matmul over the channel axis;
+larger kernels run ``F.conv2d`` on a
+channels-last view. Batch norm follows flax (:func:`batch_norm`): batch
+statistics with the biased variance in training mode, running statistics
+otherwise. The JAX package's space-to-depth first conv (``_S2DConv``) is a
 TPU layout trick over the same parameters and is a plain stride-2 conv here.
 """
 
@@ -43,6 +45,27 @@ def batch_norm_eval(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> tor
     ``(x - mean) * (scale * rsqrt(var + eps)) + bias``."""
     mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
     return (x.float() - bn.running_mean) * mul + bn.bias
+
+
+def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """Batch norm over every axis but the last, as flax's ``nn.BatchNorm(
+    momentum=0.9)`` computes it: in training mode (``bn.training``) it
+    normalises with the batch mean and the BIASED batch variance, in flax's
+    one-pass form ``max(E[x^2] - E[x]^2, 0)``, and moves the running
+    statistics 10% towards them (``torch.nn.BatchNorm`` would store the
+    unbiased variance); otherwise it uses the running statistics.
+    Statistics are float32."""
+    if not bn.training:
+        return batch_norm_eval(bn, x)
+    xf = x.float()
+    axes = tuple(range(x.dim() - 1))
+    mean = xf.mean(axes)
+    var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(0.9).add_(0.1 * mean)
+        bn.running_var.mul_(0.9).add_(0.1 * var)
+        bn.num_batches_tracked += 1
+    return (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
 
 
 def pointwise(x: torch.Tensor, weight: torch.Tensor,
@@ -82,15 +105,21 @@ class ConvNormAct(nn.Module):
             raise NotImplementedError(f"Unknown normalization function: {norm}")
         self.norm = norm
         self.activation = activation
-        self.pointwise = kernel_size == 1 and stride == 1
+        # a 1x1 conv with stride s reads the pixels (s*y, s*x): slice, then
+        # matmul (PyTorch's CPU backward of a strided 1x1 conv on a 4-channel
+        # channels-last input corrupts the heap)
+        self.pointwise = kernel_size == 1 and padding == 0
+        self.stride = stride
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.pointwise:
+            if self.stride != 1:
+                x = x[:, ::self.stride, ::self.stride]
             x = pointwise(x, self.conv_fn.weight, self.conv_fn.bias)
         else:
             x = conv2d_nhwc(x, self.conv_fn)
         if self.norm == "batch_norm":
-            x = batch_norm_eval(self.norm_fn, x)
+            x = batch_norm(self.norm_fn, x)
         elif self.norm == "instance_norm":
             x = instance_norm(x)
         return apply_activation(x, self.activation)

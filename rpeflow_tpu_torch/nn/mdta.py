@@ -1,16 +1,16 @@
 """Restormer-style MDTA cross-attention block (counterpart of
-rpeflow_tpu/nn/mdta.py), channels-last, evaluation only.
+rpeflow_tpu/nn/mdta.py), channels-last.
 
-:class:`CrossTransformerBlock` always takes the fused form: the attention's
-front half (two channel LayerNorms, the depthwise q/k/v conv and the token
-reductions) is one call of the :func:`~rpeflow_tpu_torch.ops.mdta.mdta_qkv`
-kernel, and the glue of the JAX ``_mdta_attn_fused`` finishes it in plain
-PyTorch: the token-axis l2 norms fold into the Gram matrix, the per-head
-softmax runs on its diagonal blocks, and ``(attn @ v) @ w_out`` becomes
-``v @ M`` with ``M = blockdiag_h(attn_h^T) @ w_out``. On 2-D maps the
-feed-forward is the :func:`~rpeflow_tpu_torch.ops.gdfn.gdfn` kernel; on
-point maps it stays the plain composition (1x1 conv, k=3 depthwise conv,
-exact GELU gate, 1x1 conv).
+:class:`CrossTransformerBlock` always takes the fused form: the attention is
+:func:`~rpeflow_tpu_torch.ops.mdta.mdta_attention` (the MDTA kernel and its
+glue forward, a recomputed ``_attn_ref_flat`` backward). On 2-D maps the
+feed-forward is :func:`~rpeflow_tpu_torch.ops.gdfn.gdfn`; on point maps it
+is the plain composition (1x1 conv, k=3 depthwise conv through the
+:func:`~rpeflow_tpu_torch.ops.dwconv.dwconv` kernel, exact GELU gate, 1x1
+conv). When gradients are on, the whole block is one activation checkpoint
+(``torch.utils.checkpoint``, non-reentrant), the remat unit of the JAX
+model (``rpeflow_tpu/model/core.py`` wraps it in ``nn.remat``); it holds no
+batch norm and no random draw, so its recomputation is exact.
 
 Parameter names and shapes are the upstream ones (``norm1x.body.weight``,
 ``attn.qkv_dwconv.weight [3C, 1, 3(, 3)]``, ...).
@@ -21,9 +21,11 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.dwconv import dwconv
 from ..ops.gdfn import gdfn
-from ..ops.mdta import channel_layer_norm, depthwise_conv, mdta_qkv
+from ..ops.mdta import channel_layer_norm, mdta_attention
 
 
 class _LayerNormBody(nn.Module):
@@ -62,25 +64,11 @@ class MutualAttention(nn.Module):
     def forward(self, x4: torch.Tensor, y4: torch.Tensor, ln: torch.Tensor) -> torch.Tensor:
         """``x4, y4 [B, H, W, C]`` (points as ``[B, 1, N, C]``) -> attention
         output before the residual, same shape."""
-        b, h, w, c = x4.shape
-        heads = self.num_heads
-        hc = c // heads
+        c = x4.shape[-1]
         kh = 3 if self.qkv_dwconv.weight.dim() == 4 else 1
-        dw = self.qkv_dwconv.weight.reshape(3 * c, kh, 3).permute(1, 2, 0).contiguous()
-        v, qk, sq = mdta_qkv(x4, y4, ln, dw, kh)
-
-        eps = 1e-12
-        nq = torch.sqrt(torch.clamp(sq[:, 0], min=eps * eps))
-        nk = torch.sqrt(torch.clamp(sq[:, 1], min=eps * eps))
-        logits = qk / (nq[:, :, None] * nk[:, None, :])
-        lr = logits.reshape(b, heads, hc, heads, hc)
-        blocks = torch.stack([lr[:, i, :, i, :] for i in range(heads)], dim=1)
-        attn = torch.softmax(blocks * self.temperature, dim=-1)  # [B, heads, hc, hc]
-        eye = torch.eye(heads, dtype=attn.dtype, device=attn.device)
-        bd = torch.einsum("bhcd,hg->bhdgc", attn, eye).reshape(b, c, c)
+        dw = self.qkv_dwconv.weight.reshape(3 * c, kh, 3).permute(1, 2, 0)
         w_out = self.project_out.weight.reshape(c, c).t()
-        m = torch.matmul(bd, w_out)
-        return torch.matmul(v.reshape(b, h * w, c), m).reshape(b, h, w, c)
+        return mdta_attention(x4, y4, ln, dw, self.temperature, w_out, kh, self.num_heads)
 
 
 class FeedForward(nn.Module):
@@ -103,7 +91,7 @@ class FeedForward(nn.Module):
             w_dw = self.dwconv.weight.reshape(h2, 3, 3).permute(1, 2, 0).contiguous()
             return gdfn(x.contiguous(), w_in, w_dw, w_out)
         taps = self.dwconv.weight.reshape(h2, 1, 3).permute(1, 2, 0)
-        hid = depthwise_conv(torch.matmul(x, w_in)[:, None], taps)[:, 0]
+        hid = dwconv(torch.matmul(x, w_in)[:, None], taps)[:, 0]
         g = F.gelu(hid[..., :self.hidden], approximate="none") * hid[..., self.hidden:]
         return torch.matmul(g, w_out)
 
@@ -128,6 +116,11 @@ class CrossTransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         if x.shape != y.shape:
             raise ValueError(f"shapes {tuple(x.shape)} and {tuple(y.shape)}")
+        if torch.is_grad_enabled():
+            return checkpoint(self._forward, x, y, use_reentrant=False)
+        return self._forward(x, y)
+
+    def _forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         x = x.float()
         y = y.float()
         x4 = x if self.n_spatial == 2 else x[:, None]

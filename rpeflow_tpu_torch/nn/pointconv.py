@@ -9,7 +9,7 @@ import torch.nn as nn
 
 from ..ops.gather import batch_gather
 from ..ops.knn import k_nearest_neighbor
-from .layers import MLP, apply_activation, batch_norm_eval, instance_norm
+from .layers import MLP, apply_activation, batch_norm, instance_norm
 
 
 class PointConv(nn.Module):
@@ -46,7 +46,7 @@ class PointConv(nn.Module):
         b, s = weighted.shape[:2]
         out = self.linear(weighted.reshape(b, s, -1))  # weight-major (w, c)
         if self.norm == "batch_norm":
-            out = batch_norm_eval(self.norm_fn, out)
+            out = batch_norm(self.norm_fn, out)
         elif self.norm == "instance_norm":
             out = instance_norm(out)
         return apply_activation(out, self.activation)

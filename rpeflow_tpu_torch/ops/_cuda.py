@@ -1,8 +1,9 @@
 """Build, load and count the hand-written Hopper kernels.
 
 The CUDA C++ sources in ``rpeflow_tpu_torch/csrc/`` are compiled with
-``nvcc`` into one shared library with a plain C interface, loaded with
-``ctypes``. The build happens at first use, into ``build/torch_kernels/<hash>``
+``nvcc`` (one process per source, all started together, then one link)
+into a shared library with a plain C interface, loaded with ``ctypes``.
+The build happens at first use, into ``build/torch_kernels/<hash>``
 under the repository root (listed in ``.gitignore``), keyed by a hash of the
 sources and flags, so a fresh checkout builds them itself and an unchanged
 tree reuses the library. Nothing here runs at import time: this module is
@@ -28,13 +29,13 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("fps.cu", "correlation.cu", "mdta.cu", "gdfn.cu")
+SOURCES = ("fps.cu", "correlation.cu", "mdta.cu", "gdfn.cu", "dwconv.cu")
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel wrapper; see :func:`reset_launch_counts`.
-LAUNCHES = {"fps": 0, "correlation2d": 0, "mdta_qkv": 0, "gdfn": 0}
+LAUNCHES = {"fps": 0, "correlation2d": 0, "mdta_qkv": 0, "gdfn": 0, "dwconv": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +46,9 @@ _SIGNATURES = {
     "rpeflow_mdta_gram_chunks": ((ctypes.c_longlong,), _I),
     "rpeflow_mdta_qkv": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
     "rpeflow_gdfn": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
+    "rpeflow_dwconv": ((_P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
+    "rpeflow_dwconv_taps_blocks": ((_I, _I, _I, _I), _I),
+    "rpeflow_dwconv_taps_grad": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
 }
 
 _lib = None
@@ -87,15 +91,28 @@ def build() -> Path:
         build_info.setdefault("log", "(cached)")
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"lib.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    objs = [out_dir / f"{Path(name).stem}.{os.getpid()}.o" for name in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, obj in zip(SOURCES, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [(name, proc.returncode, log) for name, proc, log in zip(SOURCES, procs, logs)
+              if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+    tmp = out_dir / f"lib.{os.getpid()}.so"
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, so)
     build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = proc.stdout + proc.stderr
+    build_info["log"] = "".join(logs)
     return so
 
 
@@ -133,5 +150,5 @@ def require_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float32) -> None
             raise ValueError(f"{name}: operands must be contiguous")
         if t.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(
-                f"{name}: the CUDA kernel is forward-only; run under "
-                "torch.inference_mode() or torch.no_grad()")
+                f"{name}: the raw kernel wrapper records no gradient; call the "
+                "differentiable function of its module, or run under torch.no_grad()")

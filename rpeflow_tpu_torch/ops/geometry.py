@@ -89,7 +89,9 @@ def project_feat_with_nn_corr(xy: torch.Tensor, feat_2d: torch.Tensor,
                               nn_indices: torch.Tensor) -> torch.Tensor:
     """Splat point features onto the pixel grid through each pixel's nearest
     projected point: ``[B, H, W, 3 + C3]`` with channels (offset_x, offset_y,
-    corr, feat_3d). ``nn_indices [B, H*W]``."""
+    corr, feat_3d). ``nn_indices [B, H*W]``. No gradient flows through it
+    (the reference's ``@torch.no_grad``, the JAX ``stop_gradient``)."""
+    xy, feat_2d, feat_3d = xy.detach(), feat_2d.detach(), feat_3d.detach()
     b, h, w, c2 = feat_2d.shape
     grid = mesh_grid(h, w, device=feat_2d.device).reshape(1, h * w, 2)
     point_feat2d = grid_sample_2d(feat_2d, xy, "zeros")

@@ -28,7 +28,7 @@ def test_port_imports_no_jax():
 
 
 def test_cpu_tensors_take_the_plain_path(rng):
-    from rpeflow_tpu_torch.ops import _cuda, correlation, fps, gdfn, mdta
+    from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, fps, gdfn, mdta
 
     _cuda.reset_launch_counts()
     x = torch.from_numpy(rng.randn(1, 6, 7, 8).astype(np.float32))
@@ -36,5 +36,8 @@ def test_cpu_tensors_take_the_plain_path(rng):
     correlation.correlation2d(x, x, 4)
     mdta.mdta_qkv(x, x, torch.ones(4, 8), torch.ones(3, 3, 24), 3)
     gdfn.gdfn(x, torch.ones(8, 10), torch.ones(3, 3, 10), torch.ones(5, 8))
-    assert _cuda.LAUNCHES == {"fps": 0, "correlation2d": 0, "mdta_qkv": 0, "gdfn": 0}
+    dwconv.dwconv(x, torch.ones(3, 3, 8))
+    dwconv.dwconv_taps_grad(x, x, 3)
+    assert _cuda.LAUNCHES == {"fps": 0, "correlation2d": 0, "mdta_qkv": 0, "gdfn": 0,
+                              "dwconv": 0}
     assert _cuda._lib is None, "a CPU call must not build or load the kernel library"

@@ -7,13 +7,17 @@ machine that has only PyTorch:
 
 (``RPEFLOW_TEST_TPU=1`` keeps tests/conftest.py from setting up JAX.)
 Tolerances: FPS indices equal; correlation atol 1e-5; MDTA v atol 1e-5,
-qk/sq within 1e-4 of their largest entry; GDFN rtol 1e-4, atol 1e-5.
+qk/sq within 1e-4 of their largest entry; GDFN rtol 1e-4, atol 1e-5;
+depthwise conv atol 1e-5, its taps gradient (a sum over every pixel) within
+1e-4 of its largest entry. The autograd functions (kernels inside) hold
+their gradients to ``torch.autograd`` through the plain compositions within
+1e-4 of each gradient's largest entry.
 """
 
 import pytest
 import torch
 
-from rpeflow_tpu_torch.ops import correlation, fps, gdfn, mdta
+from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, fps, gdfn, mdta
 from torch_port_utils import cuda_device  # noqa: F401
 
 
@@ -71,6 +75,59 @@ def test_gdfn_kernel_matches_plain(cuda_device, shape):
     w_out = torch.randn(hidden, c, generator=g, device=cuda_device) / hidden ** 0.5
     torch.testing.assert_close(gdfn.gdfn(x, w_in, w_dw, w_out),
                                gdfn.gdfn_plain(x, w_in, w_dw, w_out), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kh", [((4, 144, 240, 32), 3), ((4, 9, 15, 1020), 3),
+                                      ((4, 36, 60, 81), 3), ((8, 1, 4096, 170), 1),
+                                      ((1, 7, 5, 3), 3)])
+def test_dwconv_kernel_matches_plain(cuda_device, shape, kh):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(*shape, generator=g, device=cuda_device)
+    taps = torch.randn(kh, 3, shape[-1], generator=g, device=cuda_device) / 3
+    gout = torch.randn(*shape, generator=g, device=cuda_device)
+    _cuda.reset_launch_counts()
+    torch.testing.assert_close(dwconv.dwconv_fwd(x, taps), dwconv.dwconv_plain(x, taps),
+                               atol=1e-5, rtol=0)
+    _assert_sums_close(dwconv.dwconv_taps_grad(x, gout, kh),
+                       dwconv.dwconv_taps_grad_plain(x, gout, kh), "dtaps")
+    assert _cuda.LAUNCHES["dwconv"] == 2
+
+
+def _grads(fn, inputs, gout):
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    fn(*leaves).backward(gout)
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dwconv", "correlation2d", "gdfn", "mdta", "mdta_points"])
+def test_autograd_functions_match_plain_autograd(cuda_device, name):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=cuda_device)  # noqa: E731
+    if name == "dwconv":
+        inputs = [rnd(4, 36, 60, 96), rnd(3, 3, 96) / 3]
+        fn, ref = dwconv.dwconv, dwconv.dwconv_plain
+    elif name == "correlation2d":
+        inputs = [rnd(4, 36, 60, 64), rnd(4, 36, 60, 64)]
+        fn = lambda a, b: correlation.correlation2d(a, b, 4)  # noqa: E731
+        ref = lambda a, b: correlation.correlation2d_plain(a, b, 4)  # noqa: E731
+    elif name == "gdfn":
+        c, h = 64, int(64 * 2.66)
+        inputs = [rnd(4, 36, 60, c), rnd(c, 2 * h) / c ** 0.5, rnd(3, 3, 2 * h) / 3,
+                  rnd(h, c) / h ** 0.5]
+        fn, ref = gdfn.gdfn, gdfn.gdfn_plain
+    else:
+        shape, kh = ((4, 36, 60, 64), 3) if name == "mdta" else ((4, 1, 1024, 64), 1)
+        c = shape[-1]
+        inputs = [rnd(*shape), rnd(*shape),
+                  torch.stack([1 + 0.1 * rnd(c), 0.1 * rnd(c), 1 + 0.1 * rnd(c), 0.1 * rnd(c)]),
+                  0.3 * rnd(kh, 3, 3 * c), 1 + 0.1 * rnd(2, 1, 1), rnd(c, c) / c ** 0.5]
+        fn = lambda *a: mdta.mdta_attention(*a, kh, 2)  # noqa: E731
+        ref = lambda *a: mdta.mdta_attention_plain(*a, kh, 2)  # noqa: E731
+    gout = rnd(*fn(*inputs).shape)
+    for got, want in zip(_grads(fn, inputs, gout), _grads(ref, inputs, gout)):
+        _assert_sums_close(got, want, name)
 
 
 @pytest.mark.cuda
