@@ -9,8 +9,10 @@ Phases, each of which raises on failure (exit code != 0):
      per source);
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card at every shape the flagship forward and training step give it,
-     with timings (the depthwise conv: forward, rotated-taps input gradient
-     and taps gradient);
+     with timings, each shape's bound (bytes at 3.35 TB/s, operations at
+     67 TFLOP/s f32 or 495 TFLOP/s TF32) and, for the depthwise conv
+     (forward, rotated-taps input gradient and taps gradient), one library
+     call's time; then edge shapes (ragged GDFN tiles, FPS ties), checked;
   4. card vs CPU: the whole eval forward at a reduced shape, same weights;
   5. flagship: the FlyingThings3D eval forward (batch 4, 576x960, 20-channel
      event voxel, 8192 + 8192 points, 5 decode levels), launch counts of
@@ -25,7 +27,9 @@ Phases, each of which raises on failure (exit code != 0):
      training shape (batch 4, 540x960 frames, 8192 + 8192 points), MI on,
      one warm-up and five timed steps, launches of every kernel in one step,
      then a checkpoint loaded strictly into the eval model.
-The second-to-last line is a JSON object of per-kernel results, the last
+The second-to-last line is a JSON object of per-kernel results (phase 3's
+times, errors, bounds and library time summed over the shapes; the launches
+of one eval forward, phase 5, and of one train step, phase 8), the last
 ``{"ok": true, "device": {...}}``. Weights and inputs are random, from seeds.
 """
 
@@ -148,32 +152,108 @@ def max_rel(out, ref):
     return errors(out, ref)[1]
 
 
+# Published H100 SXM peaks at 700 W (NVIDIA H100 datasheet): device
+# memory bytes/s, f32 operations/s on the CUDA cores, dense TF32 on the
+# tensor cores. A kernel's bound is the least time for its function's work:
+# each input read once, each output written once, its operations at the
+# peak rate of the unit that runs them (max over the two units).
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
+
+
+def bound(nbytes, f32_ops, tf32_ops=0.0):
+    """(ms, "bytes" | "operations") of the least time for the work."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(f32_ops / PEAK_F32, tf32_ops / PEAK_TF32)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_work(name, shape):
+    """(bytes, f32 operations, TF32 tensor-core operations) of one call of
+    the function at ``shape``, counted from the shapes alone."""
+    f = 4  # float32 / int32 bytes
+    if name == "fps":  # xyz [B, N, 3] -> [B, S]; a step and point: 3 sub, 3 mul, 2 add,
+        # min, compare
+        b, n, s = shape
+        return f * (b * n * 3 + b * s), 10.0 * b * s * n, 0.0
+    if name == "correlation2d":  # f1, f2 [B, H, W, C] -> [B, H, W, 81]
+        b, h, w, c = shape
+        return f * (2 * b * h * w * c + 81 * b * h * w), 2.0 * 81 * c * b * h * w, 0.0
+    if name == "mdta_qkv":  # LN of x, y; kh x 3 taps on 3C; Gram C x C and sq over the pixels
+        b, h, w, c, kh = shape
+        p = b * h * w
+        nbytes = f * (3 * p * c + 4 * c + kh * 9 * c + b * c * c + 2 * b * c)
+        return nbytes, p * (2 * 8.0 * c + 3 * 2.0 * kh * 3 * c + 2.0 * c * c + 4.0 * c), 0.0
+    if name == "gdfn":  # products x @ w_in, g @ w_out; 3x3 taps on 2h; gate (erf ~ 10 ops)
+        b, h, w, c = shape
+        p, hid = b * h * w, int(2.66 * c)
+        nbytes = f * (2 * p * c + 3 * c * hid + 9 * 2 * hid)
+        products = 2.0 * p * 3 * hid * c
+        # 3xTF32: three tensor-core products for each f32 one
+        return nbytes, p * (2.0 * 9 * 2 * hid + 12.0 * hid), 3 * products
+    if name == "dwconv":  # forward, input and taps gradients: x, gout, taps in; out, dx,
+        # dtaps out
+        b, h, w, c, kh = shape
+        p = b * h * w
+        return f * (4 * p * c + 2 * kh * 3 * c), 3 * 2.0 * kh * 3 * p * c, 0.0
+    raise KeyError(name)
+
+
 def phase_kernels(dev):
     """Each kernel vs its plain version at the flagship forward's and the
-    training step's shapes."""
+    training step's shapes (timed, summed, with bounds), then at edge shapes
+    (ragged tiles, ties; checked only)."""
+    import torch.nn.functional as F
+
     from rpeflow_tpu_torch.ops import correlation, dwconv, fps, gdfn, mdta
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
     results = {}
 
-    def record(name, shape, out_ms, plain_ms, abs_err, rel_err):
-        r = results.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0})
+    def record(name, shape, out_ms, plain_ms, abs_err, rel_err, library_ms=None):
+        r = results.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
+                                      "bound_ms": 0.0, "bound": {"bytes": 0.0, "operations": 0.0},
+                                      "library_ms": None})
+        b_ms, by = bound(*kernel_work(name, shape))
         r["ms"] += out_ms
         r["plain_ms"] += plain_ms
         r["max_abs_err"] = max(r["max_abs_err"], abs_err)
-        print(f"  {name:14s} {shape:34s} kernel {out_ms:9.4f} ms  plain {plain_ms:9.4f} ms"
-              f"  max|d| {abs_err:.3e}  rel {rel_err:.3e}", flush=True)
+        r["bound_ms"] += b_ms
+        r["bound"][by] += b_ms
+        if library_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
+        lib = "" if library_ms is None else f"  library {library_ms:9.4f} ms"
+        print(f"  {name:14s} {str(shape):28s} kernel {out_ms:9.4f} ms  plain {plain_ms:9.4f} ms"
+              f"{lib}  bound {b_ms:8.4f} ms ({by})  max|d| {abs_err:.3e}  rel {rel_err:.3e}",
+              flush=True)
+
+    def fps_case(b, n, s, ties):
+        scale = torch.tensor([20., 12., 33.], device=dev)
+        xyz = torch.rand(b, n, 3, generator=g, device=dev) * scale
+        if ties:  # duplicated points on an integer grid: exact distance ties
+            dup = torch.randint(0, max(n // 4, 1), (n,), generator=g, device=dev)
+            xyz = torch.round(xyz[:, dup])
+        out = fps.furthest_point_sampling(xyz, s)
+        ref = fps.furthest_point_sampling_plain(xyz, s)
+        torch.cuda.synchronize()
+        n_diff = int((out != ref).sum())
+        if n_diff:
+            raise AssertionError(f"fps {(b, n, s)} ties={ties}: {n_diff} indices differ")
+        return xyz
+
+    def gdfn_case(b, h, w, c):
+        hid = int(c * 2.66)
+        args = (rnd(b, h, w, c), rnd(c, 2 * hid) / c ** 0.5, rnd(3, 3, 2 * hid) / 3.0,
+                rnd(hid, c) / hid ** 0.5)
+        out, ref = gdfn.gdfn(*args), gdfn.gdfn_plain(*args)
+        check_close(f"gdfn {(b, h, w, c)}", out, ref, atol=1e-5, rtol=1e-4)
+        return args, out, ref
 
     # K1: one FPS over both clouds stacked, [8, 8192, 3] -> 4096
-    xyz = torch.rand(8, 8192, 3, generator=g, device=dev) * torch.tensor([20., 12., 33.], device=dev)
-    out = fps.furthest_point_sampling(xyz, 4096)
-    ref = fps.furthest_point_sampling_plain(xyz, 4096)
-    torch.cuda.synchronize()
-    n_diff = int((out != ref).sum())
-    if n_diff:
-        raise AssertionError(f"fps: {n_diff} indices differ from the plain version")
-    record("fps", "[8,8192,3] -> 4096", time_ms(lambda: fps.furthest_point_sampling(xyz, 4096)),
+    xyz = fps_case(8, 8192, 4096, False)
+    record("fps", (8, 8192, 4096), time_ms(lambda: fps.furthest_point_sampling(xyz, 4096)),
            time_ms(lambda: fps.furthest_point_sampling_plain(xyz, 4096), runs=20, warmup=1),
            0.0, 0.0)
 
@@ -182,7 +262,7 @@ def phase_kernels(dev):
         out = correlation.correlation2d(f1, f2, 4)
         ref = correlation.correlation2d_plain(f1, f2, 4)
         check_close("correlation2d", out, ref, atol=1e-5, rtol=0.0)
-        record("correlation2d", f"[4,{h},{w},{c}]",
+        record("correlation2d", (4, h, w, c),
                time_ms(lambda: correlation.correlation2d(f1, f2, 4)),
                time_ms(lambda: correlation.correlation2d_plain(f1, f2, 4)), *errors(out, ref))
 
@@ -205,28 +285,21 @@ def phase_kernels(dev):
             if rel > 1e-4:
                 raise AssertionError(f"mdta_qkv {nm}: rel err {rel:.3e} > 1e-4")
         errs = [errors(v, rv), errors(qk, rqk), errors(sq, rsq)]
-        record("mdta_qkv", f"[{b},{h},{w},{c}] kh={kh}",
+        record("mdta_qkv", (b, h, w, c, kh),
                time_ms(lambda: mdta.mdta_qkv(x, y, ln, dw, kh)),
                time_ms(lambda: mdta.mdta_qkv_plain(x, y, ln, dw, kh)),
                errs[0][0], max(e[1] for e in errs[1:]))
-    for b, h, w, c in gdfn_shapes:
-        hid = int(c * 2.66)
-        x = rnd(b, h, w, c)
-        w_in = rnd(c, 2 * hid) / c ** 0.5
-        w_dw = rnd(3, 3, 2 * hid) / 3.0
-        w_out = rnd(hid, c) / hid ** 0.5
-        out = gdfn.gdfn(x, w_in, w_dw, w_out)
-        ref = gdfn.gdfn_plain(x, w_in, w_dw, w_out)
-        check_close("gdfn", out, ref, atol=1e-5, rtol=1e-4)
-        record("gdfn", f"[{b},{h},{w},{c}] hidden {hid}",
-               time_ms(lambda: gdfn.gdfn(x, w_in, w_dw, w_out)),
-               time_ms(lambda: gdfn.gdfn_plain(x, w_in, w_dw, w_out)), *errors(out, ref))
+    for shape in gdfn_shapes:
+        args, out, ref = gdfn_case(*shape)
+        record("gdfn", shape, time_ms(lambda: gdfn.gdfn(*args)),
+               time_ms(lambda: gdfn.gdfn_plain(*args)), *errors(out, ref))
 
     # K5 on the training step's shapes (one frame, batch 4): the q/k/v convs
     # of the 2-D MDTA blocks (C = c_l, 81, 96), the GDFN hidden maps
     # (2h = 2 int(2.66 C)), and the point maps' convs (kh = 1). Timed: the
     # kernel's forward + rotated-taps input gradient + taps gradient against
-    # the plain conv's forward + autograd backward.
+    # the plain conv's forward + autograd backward, and against one library
+    # call, F.conv2d(groups=C) on the channels-last view, forward + backward.
     dw_shapes = []
     for h, w, c, n in LEVELS:
         for cc in dict.fromkeys((c, 81, 96)):
@@ -247,14 +320,44 @@ def phase_kernels(dev):
             out = dwconv.dwconv_plain(xl, tl)
             return (out.detach(), *torch.autograd.grad(out, (xl, tl), gout))
 
+        xc = x.permute(0, 3, 1, 2).detach().requires_grad_()  # NCHW view, channels-last strides
+        wc = taps.permute(2, 0, 1).unsqueeze(1).contiguous().requires_grad_()
+        gc = gout.permute(0, 3, 1, 2)
+
+        def library_pass():
+            out = F.conv2d(xc, wc, padding=(kh // 2, 1), groups=c)
+            return torch.autograd.grad(out, (xc, wc), gc)
+
         got, want = kernel_pass(), plain_pass()
         check_close("dwconv forward", got[0], want[0], atol=1e-5, rtol=0.0)
         check_close("dwconv input gradient", got[1], want[1], atol=1e-5, rtol=0.0)
         if max_rel(got[2], want[2]) > 1e-4:  # a sum over every pixel, in another order
             raise AssertionError(f"dwconv taps gradient: rel err {max_rel(got[2], want[2]):.3e}")
-        record("dwconv", f"[{b},{h},{w},{c}] kh={kh} fwd+bwd", time_ms(kernel_pass),
-               time_ms(plain_pass), max(errors(g_, w_)[0] for g_, w_ in zip(got[:2], want[:2])),
-               max_rel(got[2], want[2]))
+        record("dwconv", (b, h, w, c, kh), time_ms(kernel_pass), time_ms(plain_pass),
+               max(errors(g_, w_)[0] for g_, w_ in zip(got[:2], want[:2])),
+               max_rel(got[2], want[2]), library_ms=time_ms(library_pass))
+
+    # edge shapes, checked and not timed: GDFN tiles cut by the image edge
+    # (W = 15, 30, 60, 130, 160 against 30-column tiles; H not a multiple of
+    # the 6- or 2-row tile) at every width class: B = 1 maps take 2-row
+    # tiles, the larger ones 6-row tiles up to C = 96 (a DSEC level-1 map
+    # is 120 x 160); FPS with duplicated points and exact ties, N not a
+    # multiple of the 512 threads, n_samples = N
+    gdfn_edges = [(b, h, w, c) for c in (32, 64, 81, 96, 128, 192)
+                  for b, h, w in ((1, 7, 15), (1, 13, 30), (1, 9, 60), (4, 120, 160),
+                                  (8, 100, 130))]
+    for shape in gdfn_edges:
+        rows = gdfn.tile_rows(*shape)
+        if rows != (6 if shape[0] > 1 and shape[3] <= 96 else 2):
+            raise AssertionError(f"gdfn {shape}: {rows}-row tiles")
+        gdfn_case(*shape)
+    fps_edges = ((2, 1000, 1000, True), (3, 3000, 1500, True), (4, 8191, 4096, True),
+                 (2, 777, 777, False), (1, 5, 5, False), (1, 1, 1, False))
+    for b, n, s, ties in fps_edges:
+        fps_case(b, n, s, ties)
+    print(f"  edge shapes: gdfn {len(gdfn_edges)} (C 32/64/81/96/128/192 x 2- and 6-row "
+          f"tiles cut by the edge), fps {len(fps_edges)} (ties, ragged N, n_samples = N): "
+          "all within tolerance", flush=True)
     return results
 
 
@@ -645,19 +748,23 @@ def main():
     phase("[4] card vs CPU, whole slice at batch 1, 128x192, 2048 points")
     phase_card_vs_cpu(dev)
     phase("[5] flagship forward, batch 4, 576x960, 8192 + 8192 points")
-    phase_flagship(dev)
+    eval_launches = phase_flagship(dev)
     phase("[6] autograd functions on the card vs torch.autograd of the plain versions")
     phase_autograd(dev)
     phase("[7] train step, card vs CPU, batch 1, 128x192, 2048 points, MI off")
     phase_train_card_vs_cpu(dev)
     phase("[8] flagship training, pretrain.yaml model, 540x960, 8192 + 8192 points, MI on")
-    launches, _ = phase_train_flagship(dev)
+    train_launches, _ = phase_train_flagship(dev)
 
-    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[name],
-                "max_abs_err": kernel_results[name]["max_abs_err"],
-                "ms": kernel_results[name]["ms"], "plain_ms": kernel_results[name]["plain_ms"]}
-               for name, (src, rep) in SOURCES.items()]
+    kernels = []
+    for name, (src, rep) in SOURCES.items():
+        r = kernel_results[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": eval_launches[name], "launches_train_step": train_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": max(r["bound"], key=r["bound"].get),
+            "share": r["bound_ms"] / r["ms"], "library_ms": r["library_ms"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

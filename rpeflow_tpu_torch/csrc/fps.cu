@@ -9,44 +9,51 @@
 // min(d, |p - p_last|^2) and picks the argmax, the lowest index winning ties.
 //
 // What bounds it on the H100: the selection is sequential, so each batch row
-// is one chain of S dependent steps (S = 4096 at the flagship shape). Each
-// step is a block-wide min/argmax over N points followed by two barriers;
-// the latency of that chain, not bandwidth or FLOPs, sets the time, and only
-// B blocks (8 at the flagship shape) are busy.
+// is one chain of S dependent steps (S = 4096 at the flagship shape), each a
+// block-wide min/argmax over N points. The latency of that chain, not
+// bandwidth or FLOPs, sets the time, and only B blocks (8 at the flagship
+// shape) are busy.
 //
-// Design: one block of 1024 threads per batch row. The row's coordinates
-// and its distance field live in dynamic shared memory (16 B per point,
-// 128 KB at N = 8192), so after one load nothing touches device memory but
-// the S output indices. The squared distance is summed as (dx^2 + dy^2) + dz^2
-// with round-to-nearest intrinsics so nvcc cannot contract it into FMAs:
-// the indices then match the plain PyTorch version bit for bit, where an
-// FMA would flip argmax ties.
+// Design: one block of 512 threads per batch row, so each step costs as
+// few instructions, dependent latencies and barriers as possible:
+//  * each thread holds its PPT points (i = tid + j * 512) and their running
+//    minimum distance in registers (slots past N hold distance -1, never
+//    chosen); a copy of the row's xyz in shared memory serves only the
+//    broadcast read of the chosen point;
+//  * the argmax orders (d, -i): d >= 0, so its bits order like the floats.
+//    A warp reduces it with two redux.sync instructions (the largest bits,
+//    then the lowest index among the lanes that hold them) instead of
+//    five levels of shuffles;
+//  * one barrier per step: each warp's winner, packed as
+//    (bits(d) << 32) | i, goes into a slot array that is double-buffered by
+//    step parity; after the barrier every warp reduces the 16 slots itself
+//    (no second barrier, no idle warps), and thread 0 writes the index.
+// The squared distance is summed as (dx^2 + dy^2) + dz^2 with round-to-nearest
+// intrinsics so nvcc cannot contract it into FMAs: the indices then match the
+// plain PyTorch version bit for bit, where an FMA would flip argmax ties.
 
 #include <cuda_runtime.h>
-#include <climits>
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 
-__device__ __forceinline__ void argmax_pair(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
+// (bits, index) of the lane with the largest bits, the lowest index on a tie
+__device__ __forceinline__ void warp_argmax(unsigned& bits, unsigned& idx) {
+  const unsigned top = __reduce_max_sync(0xffffffffu, bits);
+  idx = __reduce_min_sync(0xffffffffu, bits == top ? idx : 0xffffffffu);
+  bits = top;
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int PPT>
+__global__ void __launch_bounds__(kThreads, 1)
 fps_kernel(const float* __restrict__ xyz, int n, int s, int* __restrict__ out) {
   extern __shared__ float smem[];
   float* xs = smem;
   float* ys = xs + n;
   float* zs = ys + n;
-  float* dist = zs + n;
-  __shared__ float red_v[kWarps];
-  __shared__ int red_i[kWarps];
-  __shared__ int s_cur;
+  __shared__ unsigned long long slots[2][kWarps];
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -58,63 +65,77 @@ fps_kernel(const float* __restrict__ xyz, int n, int s, int* __restrict__ out) {
     xs[i] = row[3 * i + 0];
     ys[i] = row[3 * i + 1];
     zs[i] = row[3 * i + 2];
-    dist[i] = 1e10f;
   }
-  if (tid == 0) s_cur = 0;
+  float px[PPT], py[PPT], pz[PPT], dist[PPT];
+#pragma unroll
+  for (int j = 0; j < PPT; ++j) {
+    const int i = tid + j * kThreads;
+    px[j] = py[j] = pz[j] = 0.0f;
+    dist[j] = -1.0f;
+    if (i < n) {
+      px[j] = row[3 * i + 0];
+      py[j] = row[3 * i + 1];
+      pz[j] = row[3 * i + 2];
+      dist[j] = 1e10f;
+    }
+  }
   __syncthreads();
 
+  int cur = 0;
   for (int it = 0; it < s; ++it) {
-    const int cur = s_cur;
     if (tid == 0) out[(size_t)b * s + it] = cur;
     const float sx = xs[cur], sy = ys[cur], sz = zs[cur];
-
     float best = -1.0f;
-    int best_i = INT_MAX;
-    for (int i = tid; i < n; i += kThreads) {
-      const float dx = xs[i] - sx;
-      const float dy = ys[i] - sy;
-      const float dz = zs[i] - sz;
+    int best_j = 0;
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      const float dx = px[j] - sx;
+      const float dy = py[j] - sy;
+      const float dz = pz[j] - sz;
       const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                                 __fmul_rn(dz, dz));
-      const float m = fminf(dist[i], d);
-      dist[i] = m;
-      if (m > best) {  // i grows, so the first index keeps a tie
+      const float m = fminf(dist[j], d);  // stays -1 past N
+      dist[j] = m;
+      if (m > best) {  // i grows with j, so the first index keeps a tie
         best = m;
-        best_i = i;
+        best_j = j;
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, best, off);
-      const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
-      argmax_pair(best, best_i, ov, oi);
-    }
-    if (lane == 0) {
-      red_v[warp] = best;
-      red_i[warp] = best_i;
-    }
+    // a thread with no point holds bits 0 and the largest index, below
+    // every real point (whose d >= 0)
+    unsigned bits = best >= 0.0f ? __float_as_uint(best) : 0u;
+    unsigned idx = best >= 0.0f ? (unsigned)(tid + best_j * kThreads) : 0xffffffffu;
+    warp_argmax(bits, idx);
+    if (lane == 0) slots[it & 1][warp] = ((unsigned long long)bits << 32) | idx;
     __syncthreads();
-    if (warp == 0) {
-      best = red_v[lane];
-      best_i = red_i[lane];
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, best, off);
-        const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
-        argmax_pair(best, best_i, ov, oi);
-      }
-      if (lane == 0) s_cur = best_i;
-    }
-    __syncthreads();
+    const unsigned long long other = lane < kWarps ? slots[it & 1][lane] : 0ull;
+    bits = (unsigned)(other >> 32);
+    idx = lane < kWarps ? (unsigned)other : 0xffffffffu;
+    warp_argmax(bits, idx);
+    cur = (int)idx;
   }
+}
+
+template <int PPT>
+int launch(const float* xyz, int b, int n, int s, int* out, cudaStream_t st) {
+  const size_t smem = (size_t)3 * n * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fps_kernel<PPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fps_kernel<PPT><<<b, kThreads, smem, st>>>(xyz, n, s, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int rpeflow_fps(const float* xyz, int b, int n, int s, int* out,
-                           void* stream) {
-  const size_t smem = (size_t)4 * n * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fps_kernel<<<b, kThreads, smem, (cudaStream_t)stream>>>(xyz, n, s, out);
-  return (int)cudaGetLastError();
+// n <= 32 * 512 (the wrapper checks)
+extern "C" int rpeflow_fps(const float* xyz, int b, int n, int s, int* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= kThreads) return launch<1>(xyz, b, n, s, out, st);
+  if (n <= 2 * kThreads) return launch<2>(xyz, b, n, s, out, st);
+  if (n <= 4 * kThreads) return launch<4>(xyz, b, n, s, out, st);
+  if (n <= 8 * kThreads) return launch<8>(xyz, b, n, s, out, st);
+  if (n <= 16 * kThreads) return launch<16>(xyz, b, n, s, out, st);
+  if (n <= 32 * kThreads) return launch<32>(xyz, b, n, s, out, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -14,8 +14,8 @@ import torch
 
 from . import _cuda
 
-# dynamic shared memory per block on the H100: 227 KB, 16 B per point
-MAX_POINTS = (227 * 1024) // 16
+# the kernel holds up to 32 points in each of its 512 threads' registers
+MAX_POINTS = 32 * 512
 
 
 def furthest_point_sampling_plain(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:

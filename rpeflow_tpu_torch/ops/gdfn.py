@@ -20,6 +20,9 @@ from . import _cuda
 from ._autograd import vjp_by_recompute
 from .dwconv import dwconv, dwconv_plain
 
+# the kernel keeps a tile's x halo and its output accumulators on chip
+MAX_CHANNELS = 192
+
 
 def gdfn_plain(x, w_in, w_dw, w_out, dw_fn=dwconv_plain):
     """``_gdfn_ref``, with ``dw_fn`` as its depthwise conv."""
@@ -42,17 +45,20 @@ def gdfn_fwd(x: torch.Tensor, w_in: torch.Tensor, w_dw: torch.Tensor,
                          f"{tuple(w_dw.shape)}, {tuple(w_out.shape)}")
     if x.device.type == "cpu":
         return gdfn_plain(x, w_in, w_dw, w_out)
-    if -(-b * h * w // 64) > 65535:
-        raise ValueError("gdfn: too many pixels for the kernel's grid")
+    if c > MAX_CHANNELS:
+        raise ValueError(f"gdfn: {c} channels exceed the kernel's {MAX_CHANNELS}")
     _cuda.require_cuda("gdfn", x, w_in, w_dw, w_out)
-    pixels = b * h * w
-    scratch = torch.empty(pixels * 3 * hidden, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     _cuda.check(_cuda.lib().rpeflow_gdfn(
         x.data_ptr(), w_in.data_ptr(), w_dw.data_ptr(), w_out.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), b, h, w, c, hidden, _cuda.stream()), "gdfn")
+        b, h, w, c, hidden, _cuda.stream()), "gdfn")
     _cuda.LAUNCHES["gdfn"] += 1
     return out
+
+
+def tile_rows(b: int, h: int, w: int, c: int) -> int:
+    """Rows of the output tile (6 or 2) that the kernel takes at this shape."""
+    return _cuda.lib().rpeflow_gdfn_tile_rows(b, h, w, c)
 
 
 class _GDFN(torch.autograd.Function):

@@ -2,10 +2,10 @@
 
 Dataset-level, pixel/point-count-weighted metrics: EPE / 1px / Fl for 2-D,
 EPE / 5cm / 10cm for 3-D, and the non-occluded 3-D split when ``with_occ``.
-The host data layer is shared with the JAX package
-(``rpeflow_tpu.train.config``, ``.factory``, ``rpeflow_tpu.data.loader``);
-it needs yaml, cv2 and h5py, so it is imported only by :class:`Evaluator`,
-never by the model.
+The host data layer is the port's own copy of the JAX package's
+(``rpeflow_tpu_torch.data``, ``.train.config``, ``.train.factory``); reading
+a dataset needs h5py (and cv2 for raw files), so it is imported only by
+:class:`Evaluator`, never by the model.
 """
 
 from __future__ import annotations
@@ -106,8 +106,8 @@ class Evaluator:
     """``with_occ=True`` mirrors eval_withocc.py, ``False`` eval_noocc.py."""
 
     def __init__(self, cfgs, with_occ: bool = True, device: str | torch.device = "cuda"):
-        from rpeflow_tpu.data.loader import DataLoader
-        from rpeflow_tpu.train.factory import dataset_factory
+        from ..data.loader import DataLoader
+        from .factory import dataset_factory
 
         self.cfgs = cfgs
         self.with_occ = with_occ
@@ -173,7 +173,7 @@ def main(argv, with_occ: bool, default_config: str) -> Dict[str, float]:
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
-    from rpeflow_tpu.train.config import load_config
+    from .config import load_config
 
     cfgs = load_config(args.config)
     cfgs.ckpt.path = args.weights

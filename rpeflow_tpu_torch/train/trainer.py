@@ -2,9 +2,9 @@
 
 The epoch loop, per-step logging, validation with dataset-weighted means,
 the best checkpoint by validation ``outlier2d`` and epoch-granular resume
-follow the JAX trainer (and upstream train.py). Data comes from the shared
-host layer (``rpeflow_tpu.data``, ``rpeflow_tpu.train.factory``), imported
-only when no batches are given: it needs h5py and cv2. A caller without them
+follow the JAX trainer (and upstream train.py). Data comes from the port's
+own host layer (``rpeflow_tpu_torch.data``, ``.factory``), imported only
+when no batches are given: reading a dataset needs h5py. A caller without it
 passes the batch iterables itself (``train_batches``, ``val_batches``: each
 iteration yields dicts of numpy arrays or tensors).
 """
@@ -96,8 +96,8 @@ class Trainer:
             int(getattr(cfgs, "seed", 0)))
 
     def _loaders(self):
-        from rpeflow_tpu.data.loader import DataLoader
-        from rpeflow_tpu.train.factory import dataset_factory
+        from ..data.loader import DataLoader
+        from .factory import dataset_factory
 
         cfgs = self.cfgs
         batch_size = cfgs.model.batch_size
@@ -186,7 +186,7 @@ def main(argv=None) -> None:
                         help="Dotted config overrides, e.g. training.max_epochs=10")
     args = parser.parse_args(argv)
 
-    from rpeflow_tpu.train.config import load_config
+    from .config import load_config
 
     cfgs = load_config(args.config, args.overrides)
     if args.weights is not None:

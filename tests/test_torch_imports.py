@@ -1,11 +1,17 @@
-"""The port imports torch and never jax; its kernel wrappers take the plain
-path for CPU tensors without building or counting a kernel launch."""
+"""The port imports torch and never jax, nor any module of the JAX package
+``rpeflow_tpu``; its kernel wrappers take the plain path for CPU tensors
+without building or counting a kernel launch."""
 
+import ast
+import os
 import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -14,17 +20,64 @@ names = [m.name for m in pkgutil.walk_packages(rpeflow_tpu_torch.__path__, "rpef
          if not m.name.rsplit(".", 1)[-1].startswith("eval_")]
 for name in names:
     importlib.import_module(name)
-print(len(names))
+print(" ".join(names))
 print(" ".join(m for m in ("jax", "flax", "yaml", "cv2", "h5py") if m in sys.modules))
+print(" ".join(m for m in sys.modules if m == "rpeflow_tpu" or m.startswith("rpeflow_tpu.")))
 """
 
 
-def test_port_imports_no_jax():
+@pytest.fixture(scope="module")
+def probe():
+    """Module names imported, third-party modules pulled in, and JAX-package
+    modules pulled in by importing every module of the port (one process)."""
     proc = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,
-                          timeout=120, check=True)
-    n_modules, leaked = (proc.stdout.splitlines() + [""])[:2]
-    assert int(n_modules) >= 20
-    assert leaked == "", f"importing the port pulled in: {leaked}"
+                          timeout=120, check=True, cwd=REPO)
+    return [line.split() for line in (proc.stdout.splitlines() + ["", "", ""])[:3]]
+
+
+def test_port_imports_no_jax(probe):
+    names, leaked, _ = probe
+    assert len(names) >= 20
+    assert leaked == [], f"importing the port pulled in: {leaked}"
+
+
+def test_port_imports_its_own_host_layer(probe):
+    names, _, _ = probe
+    for mod in ("rpeflow_tpu_torch.data", "rpeflow_tpu_torch.data.loader",
+                "rpeflow_tpu_torch.data.dsec", "rpeflow_tpu_torch.train.config",
+                "rpeflow_tpu_torch.train.factory", "rpeflow_tpu_torch.compat"):
+        assert mod in names, mod
+
+
+def test_port_imports_no_module_of_the_jax_package(probe):
+    _, _, jax_pkg = probe
+    assert jax_pkg == [], f"importing the port pulled in: {jax_pkg}"
+
+
+def _port_sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "rpeflow_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_source_names_no_jax_package_import(path):
+    """No ``import rpeflow_tpu...`` / ``from rpeflow_tpu...`` statement, at any
+    depth of the file (function bodies included)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            continue
+        bad += [f"line {node.lineno}: {m}" for m in mods
+                if m.split(".")[0] in ("rpeflow_tpu", "jax", "flax")]
+    assert bad == [], bad
 
 
 def test_cpu_tensors_take_the_plain_path(rng):

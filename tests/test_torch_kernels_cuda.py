@@ -6,7 +6,7 @@ machine that has only PyTorch:
     RPEFLOW_TEST_TPU=1 python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 
 (``RPEFLOW_TEST_TPU=1`` keeps tests/conftest.py from setting up JAX.)
-Tolerances: FPS indices equal; correlation atol 1e-5; MDTA v atol 1e-5,
+Tolerances: FPS indices equal (ties included); correlation atol 1e-5; MDTA v atol 1e-5,
 qk/sq within 1e-4 of their largest entry; GDFN rtol 1e-4, atol 1e-5;
 depthwise conv atol 1e-5, its taps gradient (a sum over every pixel) within
 1e-4 of its largest entry. The autograd functions (kernels inside) hold
@@ -33,6 +33,22 @@ def test_fps_kernel_equals_plain(cuda_device):
     out = fps.furthest_point_sampling(xyz, 4096)
     ref = fps.furthest_point_sampling_plain(xyz, 4096)
     assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,s", [(2, 1000, 1000), (3, 3000, 1500), (4, 8191, 4096),
+                                   (1, 5, 5), (1, 1, 1)])
+def test_fps_kernel_ties_and_ragged_rows(cuda_device, b, n, s):
+    """Duplicated points on an integer grid (exact distance ties), N not a
+    multiple of the kernel's 512 threads, n_samples up to N."""
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    xyz = torch.rand(b, n, 3, generator=g, device=cuda_device) * 20
+    idx = torch.randint(0, max(n // 4, 1), (n,), generator=g, device=cuda_device)
+    xyz = torch.round(xyz[:, idx])
+    _cuda.reset_launch_counts()
+    out = fps.furthest_point_sampling(xyz, s)
+    assert _cuda.LAUNCHES["fps"] == 1
+    assert torch.equal(out, fps.furthest_point_sampling_plain(xyz, s))
 
 
 @pytest.mark.cuda
@@ -64,7 +80,8 @@ def test_mdta_kernel_matches_plain(cuda_device, shape, kh):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 144, 240, 32), (4, 36, 60, 81), (8, 9, 15, 192)])
+@pytest.mark.parametrize("shape", [(8, 144, 240, 32), (4, 36, 60, 81), (8, 9, 15, 192),
+                                   (4, 72, 120, 96), (8, 18, 30, 128)])
 def test_gdfn_kernel_matches_plain(cuda_device, shape):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     c = shape[-1]
@@ -75,6 +92,28 @@ def test_gdfn_kernel_matches_plain(cuda_device, shape):
     w_out = torch.randn(hidden, c, generator=g, device=cuda_device) / hidden ** 0.5
     torch.testing.assert_close(gdfn.gdfn(x, w_in, w_dw, w_out),
                                gdfn.gdfn_plain(x, w_in, w_dw, w_out), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 64, 81, 96, 128, 192])
+@pytest.mark.parametrize("b,h,w", [(1, 7, 15), (1, 13, 30), (1, 9, 60), (1, 1, 1),
+                                   (4, 120, 160), (8, 100, 130)])
+def test_gdfn_kernel_ragged_tiles(cuda_device, c, b, h, w):
+    """Tiles cut by the image edge (30-column tiles; H not a multiple of the
+    6- or 2-row tile), every channel class; one launch per call. B = 1 maps
+    take 2-row tiles; the larger ones (a DSEC level-1 map is 120 x 160) take
+    6-row tiles up to 96 channels."""
+    assert gdfn.tile_rows(b, h, w, c) == (6 if b > 1 and c <= 96 else 2)
+    g = torch.Generator(device=cuda_device).manual_seed(c + h)
+    hidden = int(c * 2.66)
+    x = torch.randn(b, h, w, c, generator=g, device=cuda_device)
+    w_in = torch.randn(c, 2 * hidden, generator=g, device=cuda_device) / c ** 0.5
+    w_dw = torch.randn(3, 3, 2 * hidden, generator=g, device=cuda_device) / 3
+    w_out = torch.randn(hidden, c, generator=g, device=cuda_device) / hidden ** 0.5
+    _cuda.reset_launch_counts()
+    out = gdfn.gdfn_fwd(x, w_in, w_dw, w_out)
+    assert _cuda.LAUNCHES["gdfn"] == 1
+    torch.testing.assert_close(out, gdfn.gdfn_plain(x, w_in, w_dw, w_out), rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.cuda
