@@ -12,7 +12,8 @@ Phases, each of which raises on failure (exit code != 0):
      with timings, each shape's bound (bytes at 3.35 TB/s, operations at
      67 TFLOP/s f32 or 495 TFLOP/s TF32) and, for the depthwise conv
      (forward, rotated-taps input gradient and taps gradient), one library
-     call's time; then edge shapes (ragged GDFN tiles, FPS ties), checked;
+     call's time; then edge shapes (ragged GDFN and MDTA tiles, FPS ties,
+     MDTA determinism), checked;
   4. card vs CPU: the whole eval forward at a reduced shape, same weights;
   5. flagship: the FlyingThings3D eval forward (batch 4, 576x960, 20-channel
      event voxel, 8192 + 8192 points, 5 decode levels), launch counts of
@@ -206,7 +207,7 @@ def phase_kernels(dev):
     (ragged tiles, ties; checked only)."""
     import torch.nn.functional as F
 
-    from rpeflow_tpu_torch.ops import correlation, dwconv, fps, gdfn, mdta
+    from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, fps, gdfn, mdta
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
@@ -251,6 +252,28 @@ def phase_kernels(dev):
         check_close(f"gdfn {(b, h, w, c)}", out, ref, atol=1e-5, rtol=1e-4)
         return args, out, ref
 
+    def mdta_case(b, h, w, c, kh):
+        """The kernel vs the plain version (v atol 1e-5; qk and sq, sums over
+        up to 34,560 tokens in another order, within 1e-4 of their largest
+        entry), a second call bitwise equal, the plan's shared memory the
+        kernel's own count."""
+        x, y = rnd(b, h, w, c), rnd(b, h, w, c)
+        ln = torch.stack([1 + 0.1 * rnd(c), 0.1 * rnd(c), 1 + 0.1 * rnd(c), 0.1 * rnd(c)])
+        args = (x, y, ln, 0.2 * rnd(kh, 3, 3 * c), kh)
+        plan = mdta.mdta_plan(b, h, w, c, kh, _cuda.sm_count(dev))
+        if _cuda.lib().rpeflow_mdta_smem_bytes(c, kh, plan.th, plan.tw) != plan.smem_bytes:
+            raise AssertionError(f"mdta_qkv {(b, h, w, c, kh)}: plan and kernel count "
+                                 "shared memory differently")
+        outs, refs = mdta.mdta_qkv(*args), mdta.mdta_qkv_plain(*args)
+        check_close(f"mdta_qkv v {(b, h, w, c, kh)}", outs[0], refs[0], atol=1e-5, rtol=0.0)
+        for nm, o, r in zip(("qk", "sq"), outs[1:], refs[1:]):
+            if max_rel(o, r) > 1e-4:
+                raise AssertionError(f"mdta_qkv {nm} {(b, h, w, c, kh)}: rel err "
+                                     f"{max_rel(o, r):.3e} > 1e-4")
+        if not all(torch.equal(o, a) for o, a in zip(outs, mdta.mdta_qkv(*args))):
+            raise AssertionError(f"mdta_qkv {(b, h, w, c, kh)}: two calls differ")
+        return args, outs, refs
+
     # K1: one FPS over both clouds stacked, [8, 8192, 3] -> 4096
     xyz = fps_case(8, 8192, 4096, False)
     record("fps", (8, 8192, 4096), time_ms(lambda: fps.furthest_point_sampling(xyz, 4096)),
@@ -271,24 +294,11 @@ def phase_kernels(dev):
         mdta_shapes += [(8, h, w, c, 3), (4, h, w, 81, 3), (4, h, w, 96, 3),
                         (8, 1, n, c, 1), (4, 1, n, c, 1), (4, 1, n, 64, 1)]
         gdfn_shapes += [(8, h, w, c), (4, h, w, 81), (4, h, w, 96)]
-    for b, h, w, c, kh in mdta_shapes:
-        x, y = rnd(b, h, w, c), rnd(b, h, w, c)
-        ln = torch.stack([1 + 0.1 * rnd(c), 0.1 * rnd(c), 1 + 0.1 * rnd(c), 0.1 * rnd(c)])
-        dw = 0.2 * rnd(kh, 3, 3 * c)
-        v, qk, sq = mdta.mdta_qkv(x, y, ln, dw, kh)
-        rv, rqk, rsq = mdta.mdta_qkv_plain(x, y, ln, dw, kh)
-        check_close("mdta_qkv v", v, rv, atol=1e-5, rtol=0.0)
-        # qk/sq: sums over up to 34,560 tokens in another order; relative to
-        # the largest entry (entries near 0 are differences of large sums)
-        for nm, o, r in (("qk", qk, rqk), ("sq", sq, rsq)):
-            rel = errors(o, r)[1]
-            if rel > 1e-4:
-                raise AssertionError(f"mdta_qkv {nm}: rel err {rel:.3e} > 1e-4")
-        errs = [errors(v, rv), errors(qk, rqk), errors(sq, rsq)]
-        record("mdta_qkv", (b, h, w, c, kh),
-               time_ms(lambda: mdta.mdta_qkv(x, y, ln, dw, kh)),
-               time_ms(lambda: mdta.mdta_qkv_plain(x, y, ln, dw, kh)),
-               errs[0][0], max(e[1] for e in errs[1:]))
+    for shape in mdta_shapes:
+        args, outs, refs = mdta_case(*shape)
+        record("mdta_qkv", shape, time_ms(lambda: mdta.mdta_qkv(*args)),
+               time_ms(lambda: mdta.mdta_qkv_plain(*args)), errors(outs[0], refs[0])[0],
+               max(errors(o, r)[1] for o, r in zip(outs[1:], refs[1:])))
     for shape in gdfn_shapes:
         args, out, ref = gdfn_case(*shape)
         record("gdfn", shape, time_ms(lambda: gdfn.gdfn(*args)),
@@ -355,9 +365,21 @@ def phase_kernels(dev):
                  (2, 777, 777, False), (1, 5, 5, False), (1, 1, 1, False))
     for b, n, s, ties in fps_edges:
         fps_case(b, n, s, ties)
+    # MDTA: H and W not multiples of the 8-row tile and its 4/8/16 columns,
+    # one token, a DSEC level-1 map, point runs of N not a multiple of the
+    # run, at every width (C = 192 in two Gram slices); then many tiles per
+    # batch element, and a batch of more blocks than the card holds at once
+    mdta_edges = [(b, h, w, c, kh) for c in (32, 64, 81, 96, 128, 192)
+                  for b, h, w, kh in ((1, 1, 1, 3), (1, 7, 15, 3), (2, 13, 30, 3),
+                                      (4, 120, 160, 3), (2, 1, 777, 1), (1, 1, 1, 1))]
+    mdta_edges += [(8, 144, 240, 32, 3), (300, 1, 16, 192, 1)]
+    for shape in mdta_edges:
+        mdta_case(*shape)
     print(f"  edge shapes: gdfn {len(gdfn_edges)} (C 32/64/81/96/128/192 x 2- and 6-row "
-          f"tiles cut by the edge), fps {len(fps_edges)} (ties, ragged N, n_samples = N): "
-          "all within tolerance", flush=True)
+          f"tiles cut by the edge), fps {len(fps_edges)} (ties, ragged N, n_samples = N), "
+          f"mdta {len(mdta_edges)} (tiles cut by the edge, one token, ragged point runs, "
+          "C 32-192, a batch beyond one wave of blocks; two calls bitwise equal): all within "
+          "tolerance", flush=True)
     return results
 
 

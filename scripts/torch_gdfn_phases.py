@@ -5,7 +5,7 @@
 A probe of ``rpeflow_tpu_torch/csrc/gdfn.cu`` as it stands: it guards the
 kernel's phases with ``#ifndef`` by finding literal fragments of its code,
 and stops with an error where a fragment is gone. Builds variants into
-``build/gdfn_phases/`` with nvcc:
+``build/gdfn_phases/`` with nvcc (``-I`` to ``csrc/`` for the shared header):
 ``full``; ``no_a`` / ``no_b`` / ``no_c`` without the first product, the
 gate or the second product; ``no_erf`` with the gate's GELU replaced by the
 identity; ``no_w`` without the weight loads after the first chunk; ``none``
@@ -64,7 +64,8 @@ def build(out_dir) -> dict:
     src.write_text(variant_source())
     nvcc = _cuda._nvcc()
     procs = {name: subprocess.Popen(
-        [nvcc, *_cuda.NVCC_FLAGS, "-shared", *flags, "-o", str(out_dir / f"{name}.so"), str(src)],
+        [nvcc, *_cuda.NVCC_FLAGS, "-shared", "-I", str(_cuda.CSRC), *flags,
+         "-o", str(out_dir / f"{name}.so"), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, flags in VARIANTS.items()}
     libs = {}

@@ -7,7 +7,7 @@ machine that has only PyTorch:
 
 (``RPEFLOW_TEST_TPU=1`` keeps tests/conftest.py from setting up JAX.)
 Tolerances: FPS indices equal (ties included); correlation atol 1e-5; MDTA v atol 1e-5,
-qk/sq within 1e-4 of their largest entry; GDFN rtol 1e-4, atol 1e-5;
+qk/sq within 1e-4 of their largest entry, two calls bitwise equal; GDFN rtol 1e-4, atol 1e-5;
 depthwise conv atol 1e-5, its taps gradient (a sum over every pixel) within
 1e-4 of its largest entry. The autograd functions (kernels inside) hold
 their gradients to ``torch.autograd`` through the plain compositions within
@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, fps, gdfn, mdta
+from torch_port_utils import MDTA_EDGE_SHAPES, MDTA_FLAGSHIP_SHAPES
 from torch_port_utils import cuda_device  # noqa: F401
 
 
@@ -61,22 +62,62 @@ def test_correlation_kernel_matches_plain(cuda_device, shape):
     torch.testing.assert_close(out, correlation.correlation2d_plain(f1, f2, 4), atol=1e-5, rtol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,kh", [((8, 144, 240, 32), 3), ((4, 9, 15, 192), 3),
-                                      ((4, 36, 60, 81), 3), ((8, 1, 4096, 32), 1),
-                                      ((4, 1, 256, 192), 1)])
-def test_mdta_kernel_matches_plain(cuda_device, shape, kh):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
+_MDTA_CASES = [((8, 144, 240, 32), 3), ((4, 9, 15, 192), 3), ((4, 36, 60, 81), 3),
+               ((8, 1, 4096, 32), 1), ((4, 1, 256, 192), 1)]
+_MDTA_CASES += [(s[:4], s[4]) for s in MDTA_EDGE_SHAPES if (s[:4], s[4]) not in _MDTA_CASES]
+
+
+def _mdta_inputs(dev, shape, kh, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
     c = shape[-1]
-    x = torch.randn(*shape, generator=g, device=cuda_device)
-    y = torch.randn(*shape, generator=g, device=cuda_device)
-    ln = 1 + 0.1 * torch.randn(4, c, generator=g, device=cuda_device)
-    dw = 0.2 * torch.randn(kh, 3, 3 * c, generator=g, device=cuda_device)
+    x = torch.randn(*shape, generator=g, device=dev)
+    y = torch.randn(*shape, generator=g, device=dev)
+    ln = 1 + 0.1 * torch.randn(4, c, generator=g, device=dev)
+    dw = 0.2 * torch.randn(kh, 3, 3 * c, generator=g, device=dev)
+    return x, y, ln, dw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kh", _MDTA_CASES)
+def test_mdta_kernel_matches_plain(cuda_device, shape, kh):
+    """Flagship shapes, then edge shapes at every width (tiles cut by the
+    map's edge, one token, a DSEC level-1 map, ragged point runs, many tiles
+    per batch element); one kernel call per wrapper call."""
+    x, y, ln, dw = _mdta_inputs(cuda_device, shape, kh)
+    _cuda.reset_launch_counts()
     v, qk, sq = mdta.mdta_qkv(x, y, ln, dw, kh)
+    assert _cuda.LAUNCHES["mdta_qkv"] == 1
     rv, rqk, rsq = mdta.mdta_qkv_plain(x, y, ln, dw, kh)
     torch.testing.assert_close(v, rv, atol=1e-5, rtol=0)
     _assert_sums_close(qk, rqk, "qk")
     _assert_sums_close(sq, rsq, "sq")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kh", [((4, 144, 240, 96), 3), ((4, 144, 240, 81), 3),
+                                      ((8, 9, 15, 192), 3), ((4, 1, 4096, 64), 1)])
+def test_mdta_kernel_is_deterministic(cuda_device, shape, kh):
+    """Partials summed in block order, no atomics: two calls are bitwise equal."""
+    inputs = _mdta_inputs(cuda_device, shape, kh, seed=1)
+    first = mdta.mdta_qkv(*inputs, kh)
+    second = mdta.mdta_qkv(*inputs, kh)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mdta_plan_matches_kernel(cuda_device):
+    """The plan's shared-memory count is the kernel's own, and the kernel
+    refuses a plan whose tile does not fit one block."""
+    lib = _cuda.lib()
+    for shape in MDTA_FLAGSHIP_SHAPES + MDTA_EDGE_SHAPES:
+        plan = mdta.mdta_plan(*shape, num_sms=_cuda.sm_count(cuda_device))
+        assert lib.rpeflow_mdta_smem_bytes(plan.c, plan.kh, plan.th, plan.tw) == plan.smem_bytes
+    x, y, ln, dw = _mdta_inputs(cuda_device, (1, 8, 64, 192), 3)
+    too_big = mdta.mdta_plan(1, 8, 64, 192, 3, tile=(8, 64, 64))
+    assert too_big.smem_bytes > mdta.SMEM_PER_BLOCK
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        mdta.launch_qkv(x, y, ln, dw, too_big)
 
 
 @pytest.mark.cuda

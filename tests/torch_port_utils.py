@@ -103,3 +103,23 @@ def assert_flow_close(actual, desired, msg, atol=2e-2):
     assert frac_ok >= 0.995, (
         f"{msg}: only {frac_ok:.4%} of elements within tolerance (max |d| {d.max():.4f})")
     assert float(d.mean()) < atol, f"{msg}: mean |d| {d.mean():.5f}"
+
+
+# (h, w, C, points) of the flagship eval forward's decode levels 1-5
+# (576x960 -> 144x240 at level 1, 8192 points -> 4096 at level 1)
+_LEVELS = [(144 >> i, 240 >> i, [32, 64, 96, 128, 192][i], 4096 >> i) for i in range(5)]
+#: (B, H, W, C, kh) of the 30 MDTA kernel calls of one flagship eval forward:
+#: per level the map's block at its own C, the two fusers at 81 and 96, and
+#: the point maps (kh = 1)
+MDTA_FLAGSHIP_SHAPES = [s for h, w, c, n in _LEVELS for s in (
+    (8, h, w, c, 3), (4, h, w, 81, 3), (4, h, w, 96, 3),
+    (8, 1, n, c, 1), (4, 1, n, c, 1), (4, 1, n, 64, 1))]
+#: MDTA edge shapes at every width the model uses: maps whose H and W are
+#: not multiples of the 8-row tiles or their 4/8/16 columns, one token, a
+#: DSEC level-1 map (120 x 160), point runs of N not a multiple of the run;
+#: then a map of many tiles per batch element, and a batch of more blocks
+#: than the card holds at once
+MDTA_EDGE_SHAPES = [(b, h, w, c, kh) for c in (32, 64, 81, 96, 128, 192)
+                    for b, h, w, kh in ((1, 1, 1, 3), (1, 7, 15, 3), (2, 13, 30, 3),
+                                        (4, 120, 160, 3), (2, 1, 777, 1), (1, 1, 1, 1))]
+MDTA_EDGE_SHAPES += [(8, 144, 240, 32, 3), (300, 1, 16, 192, 1)]
