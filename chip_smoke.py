@@ -11,9 +11,9 @@ Phases, each of which raises on failure (exit code != 0):
      card at every shape the flagship forward and training step give it,
      with timings, each shape's bound (bytes at 3.35 TB/s, operations at
      67 TFLOP/s f32 or 495 TFLOP/s TF32) and, for the depthwise conv
-     (forward, rotated-taps input gradient and taps gradient), one library
-     call's time; then edge shapes (ragged GDFN and MDTA tiles, FPS ties,
-     MDTA determinism), checked;
+     (forward and fused backward), one library
+     call's time; then edge shapes (ragged GDFN, MDTA and depthwise-conv
+     tiles, FPS ties, MDTA and depthwise-conv determinism), checked;
   4. card vs CPU: the whole eval forward at a reduced shape, same weights;
   5. flagship: the FlyingThings3D eval forward (batch 4, 576x960, 20-channel
      event voxel, 8192 + 8192 points, 5 decode levels), launch counts of
@@ -201,6 +201,28 @@ def kernel_work(name, shape):
     raise KeyError(name)
 
 
+# (B, H, W, C, kh) the depthwise conv is checked at beyond the training
+# step's: tiles, strips and channel blocks cut by the edge at C = 3 to 1020,
+# W below one tile, W = 1, H = 1 with kh = 3, one pixel, point runs of N not
+# a multiple of the tile, and a batch of more blocks than the card holds
+DWCONV_EDGE_SHAPES = [(4, 131, 77, c, 3) for c in (3, 32, 81, 170, 510, 1020)] + [
+    (2, 9, 5, 32, 3), (2, 7, 1, 81, 3), (3, 1, 40, 170, 3), (1, 1, 1, 3, 3),
+    (3, 1, 777, 170, 1), (2, 1, 1001, 32, 1), (1, 1, 1, 81, 1), (600, 4, 40, 64, 3)]
+
+
+def dwconv_shapes():
+    """(B, H, W, C, kh) of the depthwise conv's calls in one training step
+    (one frame, batch 4): per decode level the q/k/v convs of the 2-D MDTA
+    blocks (C = c_l, 81, 96), the GDFN hidden maps (2h = 2 int(2.66 C)), and
+    the point maps' convs (kh = 1)."""
+    shapes = []
+    for h, w, c, n in LEVELS:
+        for cc in dict.fromkeys((c, 81, 96)):
+            shapes += [(4, h, w, cc, 3), (4, h, w, 2 * int(2.66 * cc), 3)]
+        shapes += [(4, 1, n, c, 1), (4, 1, n, 2 * int(2.66 * c), 1)]
+    return shapes
+
+
 def phase_kernels(dev):
     """Each kernel vs its plain version at the flagship forward's and the
     training step's shapes (timed, summed, with bounds), then at edge shapes
@@ -304,25 +326,45 @@ def phase_kernels(dev):
         record("gdfn", shape, time_ms(lambda: gdfn.gdfn(*args)),
                time_ms(lambda: gdfn.gdfn_plain(*args)), *errors(out, ref))
 
-    # K5 on the training step's shapes (one frame, batch 4): the q/k/v convs
-    # of the 2-D MDTA blocks (C = c_l, 81, 96), the GDFN hidden maps
-    # (2h = 2 int(2.66 C)), and the point maps' convs (kh = 1). Timed: the
-    # kernel's forward + rotated-taps input gradient + taps gradient against
-    # the plain conv's forward + autograd backward, and against one library
-    # call, F.conv2d(groups=C) on the channels-last view, forward + backward.
-    dw_shapes = []
-    for h, w, c, n in LEVELS:
-        for cc in dict.fromkeys((c, 81, 96)):
-            dw_shapes += [(4, h, w, cc, 3), (4, h, w, 2 * int(2.66 * cc), 3)]
-        dw_shapes += [(4, 1, n, c, 1), (4, 1, n, 2 * int(2.66 * c), 1)]
-    for b, h, w, c, kh in dw_shapes:
+    def dwconv_case(b, h, w, c, kh, plans=None):
+        """The forward and the fused backward (under ``plans``, else the
+        default plans) vs the plain versions (forward and input gradient
+        atol 1e-5, the taps gradient -- a sum over every pixel, in another
+        order -- within 1e-4 of its largest entry), one launch a wrapper
+        call, two backward calls bitwise equal."""
         x, gout = rnd(b, h, w, c), rnd(b, h, w, c)
         taps = rnd(kh, 3, c) / 3
+        if plans is None:
+            fwd = lambda: dwconv.dwconv_fwd(x, taps)  # noqa: E731
+            bwd = lambda: dwconv.dwconv_bwd(x, gout, taps)  # noqa: E731
+        else:
+            fwd = lambda: dwconv.launch_fwd(x, taps, plans[0])  # noqa: E731
+            bwd = lambda: dwconv.launch_bwd(x, gout, taps, plans[1])  # noqa: E731
+        before = _cuda.LAUNCHES["dwconv"]
+        got = (fwd(), *bwd())
+        if _cuda.LAUNCHES["dwconv"] - before != 2:
+            raise AssertionError(f"dwconv {(b, h, w, c, kh)}: "
+                                 f"{_cuda.LAUNCHES['dwconv'] - before} launches for 2 calls")
+        want = (dwconv.dwconv_plain(x, taps), *dwconv.dwconv_bwd_plain(x, gout, taps))
+        check_close(f"dwconv forward {(b, h, w, c, kh)}", got[0], want[0], atol=1e-5, rtol=0.0)
+        check_close(f"dwconv input gradient {(b, h, w, c, kh)}", got[1], want[1], atol=1e-5,
+                    rtol=0.0)
+        if max_rel(got[2], want[2]) > 1e-4:
+            raise AssertionError(f"dwconv taps gradient {(b, h, w, c, kh)}: rel err "
+                                 f"{max_rel(got[2], want[2]):.3e}")
+        if not all(torch.equal(a, o) for a, o in zip(got[1:], bwd())):
+            raise AssertionError(f"dwconv {(b, h, w, c, kh)}: two backward calls differ")
+        return x, gout, taps, got, want
+
+    # K5 on the training step's shapes (dwconv_shapes). Timed: the kernel's
+    # forward + fused backward against the plain conv's forward + autograd
+    # backward, and against one library call, F.conv2d(groups=C) on the
+    # channels-last view, forward + backward.
+    for b, h, w, c, kh in dwconv_shapes():
+        x, gout, taps, got, want = dwconv_case(b, h, w, c, kh)
 
         def kernel_pass():
-            out = dwconv.dwconv_fwd(x, taps)
-            dx = dwconv.dwconv_fwd(gout, taps.flip(0, 1).contiguous())
-            return out, dx, dwconv.dwconv_taps_grad(x, gout, kh)
+            return dwconv.dwconv_fwd(x, taps), *dwconv.dwconv_bwd(x, gout, taps)
 
         xl, tl = x.clone().requires_grad_(), taps.clone().requires_grad_()
 
@@ -338,11 +380,6 @@ def phase_kernels(dev):
             out = F.conv2d(xc, wc, padding=(kh // 2, 1), groups=c)
             return torch.autograd.grad(out, (xc, wc), gc)
 
-        got, want = kernel_pass(), plain_pass()
-        check_close("dwconv forward", got[0], want[0], atol=1e-5, rtol=0.0)
-        check_close("dwconv input gradient", got[1], want[1], atol=1e-5, rtol=0.0)
-        if max_rel(got[2], want[2]) > 1e-4:  # a sum over every pixel, in another order
-            raise AssertionError(f"dwconv taps gradient: rel err {max_rel(got[2], want[2]):.3e}")
         record("dwconv", (b, h, w, c, kh), time_ms(kernel_pass), time_ms(plain_pass),
                max(errors(g_, w_)[0] for g_, w_ in zip(got[:2], want[:2])),
                max_rel(got[2], want[2]), library_ms=time_ms(library_pass))
@@ -375,11 +412,21 @@ def phase_kernels(dev):
     mdta_edges += [(8, 144, 240, 32, 3), (300, 1, 16, 192, 1)]
     for shape in mdta_edges:
         mdta_case(*shape)
+    # depthwise conv: each edge shape under the default plans, and under
+    # plans of 7-row strips and 5 backward blocks (strips cut by the map's
+    # edge, many units a block)
+    sms = _cuda.sm_count(dev)
+    for shape in DWCONV_EDGE_SHAPES:
+        dwconv_case(*shape)
+        dwconv_case(*shape, plans=(dwconv.dwconv_plan(*shape, sms, rh=7),
+                                   dwconv.dwconv_plan(*shape, sms, backward=True, rh=7, nb=5)))
     print(f"  edge shapes: gdfn {len(gdfn_edges)} (C 32/64/81/96/128/192 x 2- and 6-row "
           f"tiles cut by the edge), fps {len(fps_edges)} (ties, ragged N, n_samples = N), "
           f"mdta {len(mdta_edges)} (tiles cut by the edge, one token, ragged point runs, "
-          "C 32-192, a batch beyond one wave of blocks; two calls bitwise equal): all within "
-          "tolerance", flush=True)
+          "C 32-192, a batch beyond one wave of blocks; two calls bitwise equal), dwconv "
+          f"{2 * len(DWCONV_EDGE_SHAPES)} (tiles and strips cut by the edge, W = 1, H = 1, "
+          "C 3-1020, ragged point runs, a batch beyond one wave of blocks; two backward calls "
+          "bitwise equal): all within tolerance", flush=True)
     return results
 
 
@@ -394,6 +441,7 @@ def phase_card_vs_cpu(dev):
         model.to(dev)
         out = model({k: t.to(dev) for k, t in batch.items()})
     atol = 2e-2
+    bad = []
     for key in ("flow_2d", "flow_3d"):
         o, r = out[key].cpu().double(), ref[key].double()
         if not torch.isfinite(o).all():
@@ -403,7 +451,9 @@ def phase_card_vs_cpu(dev):
         print(f"  {key}: {tuple(o.shape)}  within tol {frac:.4%}  mean|d| {float(d.mean()):.3e}"
               f"  max|d| {float(d.max()):.3e}", flush=True)
         if frac < 0.995 or float(d.mean()) >= atol:
-            raise AssertionError(f"card vs CPU: {key} outside the tolerance model")
+            bad.append(key)
+    if bad:
+        raise AssertionError(f"card vs CPU: {bad} outside the tolerance model")
 
 
 def check_launches(path, launches):
@@ -753,10 +803,11 @@ def main():
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
     print(f"[1] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     from rpeflow_tpu_torch.ops import _cuda
+    from rpeflow_tpu_torch.train.precision import use_f32
+
+    use_f32()
 
     t0 = time.perf_counter()
     _cuda.lib()

@@ -6,8 +6,12 @@ kernels the JAX package wrote in Pallas for the TPU are CUDA C++ for
 ``sm_90a`` under ``csrc/``, built at first use (``ops/_cuda.py``); every
 kernel wrapper runs its plain PyTorch version for CPU tensors.
 
-This release covers the evaluation forward (``model.RPEFlow``,
-``train.evaluator``, the ``eval_withocc`` / ``eval_noocc`` CLIs).
+It covers evaluation (``model.RPEFlow``, ``train.evaluator``, the
+``eval_withocc`` / ``eval_noocc`` CLIs), single-device training with
+autograd through the kernels (``train.trainer``, ``python -m
+rpeflow_tpu_torch.train``) and its own host layer (``data``,
+``train.config``, ``train.factory``). The drivers compute in float32 with
+TF32 off (``train.precision.use_f32``), as the JAX package does.
 """
 
 __version__ = "0.1.0"

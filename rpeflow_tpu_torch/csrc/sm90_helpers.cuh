@@ -1,4 +1,4 @@
-// Device helpers shared by the Hopper kernels (gdfn.cu, mdta.cu): 3xTF32
+// Device helpers shared by the Hopper kernels (gdfn.cu, mdta.cu, dwconv.cu): 3xTF32
 // products on the tensor cores and asynchronous copies to shared memory.
 #pragma once
 
@@ -46,12 +46,17 @@ __device__ __forceinline__ void mma3(float (&acc)[MT][NT][4], const uint32_t (&a
     for (int i = 0; i < MT; ++i) mma(acc[i][j], ab[i], bb[j][0], bb[j][1]);
 }
 
-// 4- and 16-byte asynchronous copies to shared memory; zero-filled where
-// !valid.
+// 4-, 8- and 16-byte asynchronous copies to shared memory; zero-filled
+// where !valid.
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
   const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr), "l"(src),
                "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async8(float* dst, const float* src, bool valid) {
+  const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(saddr), "l"(src),
+               "r"(valid ? 8 : 0));
 }
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);

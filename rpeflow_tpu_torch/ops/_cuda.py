@@ -48,9 +48,8 @@ _SIGNATURES = {
     "rpeflow_mdta_qkv": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P), _I),
     "rpeflow_gdfn": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
     "rpeflow_gdfn_tile_rows": ((_I, _I, _I, _I), _I),
-    "rpeflow_dwconv": ((_P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
-    "rpeflow_dwconv_taps_blocks": ((_I, _I, _I, _I), _I),
-    "rpeflow_dwconv_taps_grad": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
+    "rpeflow_dwconv": ((_P, _P, _P, _P, _P), _I),
+    "rpeflow_dwconv_bwd": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _P), _I),
 }
 
 _lib = None

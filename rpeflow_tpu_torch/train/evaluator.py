@@ -19,6 +19,7 @@ import torch
 
 from ..compat import load_checkpoint
 from ..model import DEFAULT_N_SAMPLES, RPEFlow
+from .precision import use_f32
 
 MODEL_KEYS = ("images", "pcs", "event_voxel", "intrinsics")
 
@@ -109,6 +110,7 @@ class Evaluator:
         from ..data.loader import DataLoader
         from .factory import dataset_factory
 
+        use_f32()
         self.cfgs = cfgs
         self.with_occ = with_occ
         self.device = torch.device(device)

@@ -22,6 +22,7 @@ import torch
 from ..model import DEFAULT_N_SAMPLES, RPEFlow, is_better
 from .checkpoint import load_weights, restore_checkpoint, save_checkpoint
 from .optim import optimizer_factory
+from .precision import use_f32
 from .state import eval_step, train_step
 
 BATCH_KEYS = ("images", "pcs", "event_voxel", "intrinsics", "flow_2d", "flow_3d")
@@ -58,6 +59,7 @@ class Trainer:
 
     def __init__(self, cfgs, device="cuda", train_batches: Optional[Iterable] = None,
                  val_batches: Optional[Iterable] = None):
+        use_f32()
         self.cfgs = cfgs
         self.device = torch.device(device)
         self.curr_epoch = 1

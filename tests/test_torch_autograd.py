@@ -2,10 +2,11 @@
 package's backward oracles: ``_dw_flat`` (depthwise conv),
 ``_correlation2d_bwd_ref`` (cost volume), ``_gdfn_ref`` (GDFN) and
 ``_attn_ref_flat`` (MDTA attention). On the CPU the functions run their
-plain versions forward and the same backward code as on the card (the
-rotated-taps input gradient, the taps-gradient formula, the recomputed
-compositions). Same numpy inputs on both sides; float32 sums in another
-order, so rtol 1e-4 with an atol of 1e-5 times the largest reference entry.
+plain versions forward and backward (for the depthwise conv,
+``dwconv_bwd_plain``: the rotated-taps input gradient and the taps-gradient
+formula) and the same recomputed compositions as on the card. Same numpy
+inputs on both sides; float32 sums in another order, so rtol 1e-4 with an
+atol of 1e-5 times the largest reference entry.
 """
 
 import functools
@@ -63,6 +64,30 @@ def test_dwconv_input_gradient_is_the_rotated_taps_conv(rng, kh):
     _, vjp = jax.vjp(lambda z: _dw_flat(z, jnp.asarray(taps), kh), jnp.asarray(x))
     rotated = dwconv.dwconv_fwd(torch.from_numpy(g), torch.from_numpy(taps).flip(0, 1))
     _close(rotated, vjp(jnp.asarray(g))[0], "rotated-taps conv")
+
+
+@pytest.mark.parametrize("shape,kh", [((2, 6, 7, 5), 3), ((1, 9, 11, 8), 3), ((2, 1, 13, 6), 1),
+                                      ((3, 1, 7, 81), 1), ((2, 5, 1, 7), 3), ((2, 1, 9, 3), 3),
+                                      ((1, 1, 1, 4), 3)])
+def test_dwconv_bwd_plain_matches_dw_flat_vjp(rng, shape, kh):
+    """The fused backward's plain version against ``jax.vjp`` of ``_dw_flat``
+    on 2-D maps and point maps, C not a multiple of 4, W = 1 and H = 1: dx
+    atol 1e-5, dtaps (a sum over every pixel) within 1e-4 of its largest
+    entry; each gradient left out on request."""
+    x = rng.randn(*shape).astype(np.float32)
+    taps = rng.randn(kh, 3, shape[-1]).astype(np.float32)
+    g = rng.randn(*shape).astype(np.float32)
+    _, vjp = jax.vjp(functools.partial(_dw_flat, kh=kh), jnp.asarray(x), jnp.asarray(taps))
+    ref_dx, ref_dtaps = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    xt, gt, tt = (torch.from_numpy(a) for a in (x, g, taps))
+    dx, dtaps = dwconv.dwconv_bwd_plain(xt, gt, tt)
+    np.testing.assert_allclose(dx.numpy(), ref_dx, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(dtaps.numpy(), ref_dtaps, rtol=0,
+                               atol=1e-4 * float(np.abs(ref_dtaps).max()))
+    only_dx, no_dtaps = dwconv.dwconv_bwd(xt, gt, tt, need_dtaps=False)
+    no_dx, only_dtaps = dwconv.dwconv_bwd(xt, gt, tt, need_dx=False)
+    assert no_dtaps is None and no_dx is None
+    assert torch.equal(only_dx, dx) and torch.equal(only_dtaps, dtaps)
 
 
 @pytest.mark.parametrize("shape,d", [((2, 7, 9, 6), 4), ((1, 5, 12, 3), 2)])

@@ -90,7 +90,7 @@ def test_cpu_tensors_take_the_plain_path(rng):
     mdta.mdta_qkv(x, x, torch.ones(4, 8), torch.ones(3, 3, 24), 3)
     gdfn.gdfn(x, torch.ones(8, 10), torch.ones(3, 3, 10), torch.ones(5, 8))
     dwconv.dwconv(x, torch.ones(3, 3, 8))
-    dwconv.dwconv_taps_grad(x, x, 3)
+    dwconv.dwconv_bwd(x, x, torch.ones(3, 3, 8))
     assert _cuda.LAUNCHES == {"fps": 0, "correlation2d": 0, "mdta_qkv": 0, "gdfn": 0,
                               "dwconv": 0}
     assert _cuda._lib is None, "a CPU call must not build or load the kernel library"

@@ -8,8 +8,9 @@ machine that has only PyTorch:
 (``RPEFLOW_TEST_TPU=1`` keeps tests/conftest.py from setting up JAX.)
 Tolerances: FPS indices equal (ties included); correlation atol 1e-5; MDTA v atol 1e-5,
 qk/sq within 1e-4 of their largest entry, two calls bitwise equal; GDFN rtol 1e-4, atol 1e-5;
-depthwise conv atol 1e-5, its taps gradient (a sum over every pixel) within
-1e-4 of its largest entry. The autograd functions (kernels inside) hold
+depthwise conv and its input gradient atol 1e-5, its taps gradient (a sum
+over every pixel) within 1e-4 of its largest entry, two backward calls
+bitwise equal. The autograd functions (kernels inside) hold
 their gradients to ``torch.autograd`` through the plain compositions within
 1e-4 of each gradient's largest entry.
 """
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, fps, gdfn, mdta
+from chip_smoke import DWCONV_EDGE_SHAPES
 from torch_port_utils import MDTA_EDGE_SHAPES, MDTA_FLAGSHIP_SHAPES
 from torch_port_utils import cuda_device  # noqa: F401
 
@@ -157,21 +159,64 @@ def test_gdfn_kernel_ragged_tiles(cuda_device, c, b, h, w):
     torch.testing.assert_close(out, gdfn.gdfn_plain(x, w_in, w_dw, w_out), rtol=1e-4, atol=1e-5)
 
 
+_DWCONV_CASES = [((4, 144, 240, 32), 3), ((4, 144, 240, 510), 3), ((4, 72, 120, 340), 3),
+                 ((4, 9, 15, 1020), 3), ((4, 36, 60, 81), 3), ((8, 1, 4096, 170), 1),
+                 ((1, 7, 5, 3), 3)]
+_DWCONV_CASES += [(s[:4], s[4]) for s in DWCONV_EDGE_SHAPES]
+
+
+def _dwconv_inputs(dev, shape, kh, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(*shape, generator=g, device=dev)
+    taps = torch.randn(kh, 3, shape[-1], generator=g, device=dev) / 3
+    return x, torch.randn(*shape, generator=g, device=dev), taps
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,kh", [((4, 144, 240, 32), 3), ((4, 9, 15, 1020), 3),
-                                      ((4, 36, 60, 81), 3), ((8, 1, 4096, 170), 1),
-                                      ((1, 7, 5, 3), 3)])
+@pytest.mark.parametrize("shape,kh", _DWCONV_CASES)
 def test_dwconv_kernel_matches_plain(cuda_device, shape, kh):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn(*shape, generator=g, device=cuda_device)
-    taps = torch.randn(kh, 3, shape[-1], generator=g, device=cuda_device) / 3
-    gout = torch.randn(*shape, generator=g, device=cuda_device)
+    """Training-step and edge shapes (tiles, strips and channel blocks cut by
+    the edge, W = 1, H = 1, C = 3 to 1020, ragged point runs, a batch beyond
+    one wave of blocks): the forward and the fused backward, one launch per
+    wrapper call, also with only one of the two gradients."""
+    x, gout, taps = _dwconv_inputs(cuda_device, shape, kh)
     _cuda.reset_launch_counts()
-    torch.testing.assert_close(dwconv.dwconv_fwd(x, taps), dwconv.dwconv_plain(x, taps),
-                               atol=1e-5, rtol=0)
-    _assert_sums_close(dwconv.dwconv_taps_grad(x, gout, kh),
-                       dwconv.dwconv_taps_grad_plain(x, gout, kh), "dtaps")
+    out = dwconv.dwconv_fwd(x, taps)
+    dx, dtaps = dwconv.dwconv_bwd(x, gout, taps)
     assert _cuda.LAUNCHES["dwconv"] == 2
+    ref_dx, ref_dtaps = dwconv.dwconv_bwd_plain(x, gout, taps)
+    torch.testing.assert_close(out, dwconv.dwconv_plain(x, taps), atol=1e-5, rtol=0)
+    torch.testing.assert_close(dx, ref_dx, atol=1e-5, rtol=0)
+    _assert_sums_close(dtaps, ref_dtaps, "dtaps")
+    fwd = dwconv.dwconv_plan(*shape, kh, _cuda.sm_count(cuda_device), rh=7)
+    torch.testing.assert_close(dwconv.launch_fwd(x, taps, fwd), out, atol=1e-5, rtol=0)
+    _cuda.reset_launch_counts()
+    only_dx, none = dwconv.dwconv_bwd(x, gout, taps, need_dtaps=False)
+    none2, only_dtaps = dwconv.dwconv_bwd(x, gout, taps, need_dx=False)
+    assert none is None and none2 is None and _cuda.LAUNCHES["dwconv"] == 2
+    assert torch.equal(only_dx, dx) and torch.equal(only_dtaps, dtaps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kh", [((4, 144, 240, 510), 3), ((4, 72, 120, 96), 3),
+                                      ((600, 4, 40, 64), 3), ((4, 1, 4096, 32), 1)])
+@pytest.mark.parametrize("forced", [False, True], ids=["plan", "rh7-nb5"])
+def test_dwconv_bwd_is_deterministic(cuda_device, shape, kh, forced):
+    """Per-block partials summed in a fixed order, no float atomics: two
+    backward calls are bitwise equal, under the default plan and under
+    7-row strips and 5 blocks (which also must stay right)."""
+    x, gout, taps = _dwconv_inputs(cuda_device, shape, kh, seed=1)
+    if forced:
+        plan = dwconv.dwconv_plan(*shape, kh, _cuda.sm_count(cuda_device), backward=True,
+                                  rh=7, nb=5)
+        call = lambda: dwconv.launch_bwd(x, gout, taps, plan)  # noqa: E731
+    else:
+        call = lambda: dwconv.dwconv_bwd(x, gout, taps)  # noqa: E731
+    first, second = call(), call()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    ref_dx, ref_dtaps = dwconv.dwconv_bwd_plain(x, gout, taps)
+    torch.testing.assert_close(first[0], ref_dx, atol=1e-5, rtol=0)
+    _assert_sums_close(first[1], ref_dtaps, "dtaps")
 
 
 def _grads(fn, inputs, gout):

@@ -14,10 +14,11 @@ def cuda_device():
     they skip where there is no card (decided here, not at import)."""
     import torch
 
+    from rpeflow_tpu_torch.train.precision import use_f32
+
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: pytest -m cuda)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    use_f32()
     return torch.device("cuda:0")
 
 
