@@ -12,8 +12,10 @@ Phases, each of which raises on failure (exit code != 0):
      with timings, each shape's bound (bytes at 3.35 TB/s, operations at
      67 TFLOP/s f32 or 495 TFLOP/s TF32) and, for the depthwise conv
      (forward and fused backward), one library
-     call's time; then edge shapes (ragged GDFN, MDTA and depthwise-conv
-     tiles, FPS ties, MDTA and depthwise-conv determinism), checked;
+     call's time; the correlation's forward and, apart, its fused backward;
+     then edge shapes (ragged GDFN, MDTA, depthwise-conv and correlation
+     tiles, FPS ties, MDTA, depthwise-conv and correlation-backward
+     determinism), checked;
   4. card vs CPU: the whole eval forward at a reduced shape, same weights;
   5. flagship: the FlyingThings3D eval forward (batch 4, 576x960, 20-channel
      event voxel, 8192 + 8192 points, 5 decode levels), launch counts of
@@ -26,11 +28,14 @@ Phases, each of which raises on failure (exit code != 0):
      per-leaf gradients and updated batch statistics;
   8. flagship training: conf/train/pretrain.yaml's model at the FT3D
      training shape (batch 4, 540x960 frames, 8192 + 8192 points), MI on,
-     one warm-up and five timed steps, launches of every kernel in one step,
-     then a checkpoint loaded strictly into the eval model.
+     one warm-up and five timed steps, launches of every kernel in one step
+     (five of the correlation's backward), then a checkpoint loaded strictly
+     into the eval model.
 The second-to-last line is a JSON object of per-kernel results (phase 3's
 times, errors, bounds and library time summed over the shapes; the launches
-of one eval forward, phase 5, and of one train step, phase 8), the last
+of one eval forward, phase 5, or, for the correlation's backward, which the
+eval forward does not run, of one train step, phase 8; and the launches of
+one train step), the last
 ``{"ok": true, "device": {...}}``. Weights and inputs are random, from seeds.
 """
 
@@ -61,13 +66,15 @@ SOURCES = {
     "fps": ("rpeflow_tpu_torch/csrc/fps.cu", "rpeflow_tpu/ops/pallas/fps.py:53"),
     "correlation2d": ("rpeflow_tpu_torch/csrc/correlation.cu",
                       "rpeflow_tpu/ops/pallas/correlation.py:78"),
+    "correlation2d_bwd": ("rpeflow_tpu_torch/csrc/correlation.cu",
+                          "rpeflow_tpu/ops/correlation.py:52"),
     "mdta_qkv": ("rpeflow_tpu_torch/csrc/mdta.cu", "rpeflow_tpu/ops/pallas/mdta.py:170"),
     "gdfn": ("rpeflow_tpu_torch/csrc/gdfn.cu", "rpeflow_tpu/ops/pallas/gdfn.py:135"),
     "dwconv": ("rpeflow_tpu_torch/csrc/dwconv.cu", "rpeflow_tpu/ops/pallas/dwconv.py:90"),
 }
 # kernels each path must launch (the eval forward's point-map GDFN runs the
-# depthwise kernel too)
-EXPECTED = {"eval forward": set(SOURCES), "train step": set(SOURCES)}
+# depthwise kernel too; only training runs the correlation's backward)
+EXPECTED = {"eval forward": set(SOURCES) - {"correlation2d_bwd"}, "train step": set(SOURCES)}
 
 
 def model_cfg():
@@ -181,6 +188,10 @@ def kernel_work(name, shape):
     if name == "correlation2d":  # f1, f2 [B, H, W, C] -> [B, H, W, 81]
         b, h, w, c = shape
         return f * (2 * b * h * w * c + 81 * b * h * w), 2.0 * 81 * c * b * h * w, 0.0
+    if name == "correlation2d_bwd":  # f1, f2, g in; grad1, grad2 out; 81 C FMAs a
+        # pixel for each gradient
+        b, h, w, c = shape
+        return f * b * h * w * (4 * c + 81), 4.0 * 81 * c * b * h * w, 0.0
     if name == "mdta_qkv":  # LN of x, y; kh x 3 taps on 3C; Gram C x C and sq over the pixels
         b, h, w, c, kh = shape
         p = b * h * w
@@ -208,6 +219,19 @@ def kernel_work(name, shape):
 DWCONV_EDGE_SHAPES = [(4, 131, 77, c, 3) for c in (3, 32, 81, 170, 510, 1020)] + [
     (2, 9, 5, 32, 3), (2, 7, 1, 81, 3), (3, 1, 40, 170, 3), (1, 1, 1, 3, 3),
     (3, 1, 777, 170, 1), (2, 1, 1001, 32, 1), (1, 1, 1, 81, 1), (600, 4, 40, 64, 3)]
+
+
+# (B, H, W, C, d) the correlation is checked at beyond the flagship's: tiles
+# cut by the edge, C not a multiple of 4 (3, 81) or of the 32-channel chunk
+# (20), d = 0, 1 and 4, B = 1, one pixel, and maps of one or two tile rows
+CORR_EDGE_SHAPES = [(b, h, w, c, d) for b, h, w, c in ((1, 37, 61, 20), (2, 5, 7, 3),
+                                                       (1, 9, 15, 81))
+                    for d in (0, 1, 4)]
+CORR_EDGE_SHAPES += [(1, 144, 240, 32, 1), (4, 72, 120, 64, 0), (1, 1, 1, 32, 4),
+                     (3, 2, 33, 96, 4)]
+#: the non-default plan each edge shape is also run under: 3-row, 32-column
+#: tiles (rows and columns cut by the edge)
+CORR_EDGE_PLAN = dict(th=3, tw=32)
 
 
 def dwconv_shapes():
@@ -302,14 +326,47 @@ def phase_kernels(dev):
            time_ms(lambda: fps.furthest_point_sampling_plain(xyz, 4096), runs=20, warmup=1),
            0.0, 0.0)
 
+    def corr_case(b, h, w, c, d, plans=None):
+        """The forward and the fused backward (under ``plans``, else the
+        default plans) vs the plain versions (forward atol 1e-5, each
+        gradient within 1e-5 of its largest entry), one launch a wrapper
+        call, two backward calls bitwise equal."""
+        f1, f2, g_ = rnd(b, h, w, c), rnd(b, h, w, c), rnd(b, h, w, (2 * d + 1) ** 2)
+        if plans is None:
+            fwd = lambda: correlation.correlation2d_fwd(f1, f2, d)  # noqa: E731
+            bwd = lambda: correlation.correlation2d_bwd(f1, f2, g_, d)  # noqa: E731
+        else:
+            fwd = lambda: correlation.launch_fwd(f1, f2, plans[0])  # noqa: E731
+            bwd = lambda: correlation.launch_bwd(f1, f2, g_, plans[1])  # noqa: E731
+        before = dict(_cuda.LAUNCHES)
+        out, grads = fwd(), bwd()
+        counts = [_cuda.LAUNCHES[k] - before[k] for k in ("correlation2d", "correlation2d_bwd")]
+        if counts != [1, 1]:
+            raise AssertionError(f"correlation2d {(b, h, w, c, d)}: launches {counts}")
+        ref, refs = (correlation.correlation2d_plain(f1, f2, d),
+                     correlation.correlation2d_bwd_plain(f1, f2, g_, d))
+        check_close(f"correlation2d {(b, h, w, c, d)}", out, ref, atol=1e-5, rtol=0.0)
+        for name, got, want in zip(("grad1", "grad2"), grads, refs):
+            if max_rel(got, want) > 1e-5:
+                raise AssertionError(f"correlation2d {name} {(b, h, w, c, d)}: rel err "
+                                     f"{max_rel(got, want):.3e} > 1e-5")
+        if not all(torch.equal(a, o) for a, o in zip(grads, bwd())):
+            raise AssertionError(f"correlation2d {(b, h, w, c, d)}: two backward calls differ")
+        return f1, f2, g_, (out, ref), (grads, refs)
+
+    # K2 on the flagship's five decode levels (the training step's too): the
+    # forward timed alone, as before the backward kernel existed, then the
+    # fused backward against the plain backward
     for h, w, c, _ in LEVELS:
-        f1, f2 = rnd(4, h, w, c), rnd(4, h, w, c)
-        out = correlation.correlation2d(f1, f2, 4)
-        ref = correlation.correlation2d_plain(f1, f2, 4)
-        check_close("correlation2d", out, ref, atol=1e-5, rtol=0.0)
+        f1, f2, g_, (out, ref), (grads, refs) = corr_case(4, h, w, c, 4)
         record("correlation2d", (4, h, w, c),
                time_ms(lambda: correlation.correlation2d(f1, f2, 4)),
                time_ms(lambda: correlation.correlation2d_plain(f1, f2, 4)), *errors(out, ref))
+        record("correlation2d_bwd", (4, h, w, c),
+               time_ms(lambda: correlation.correlation2d_bwd(f1, f2, g_, 4)),
+               time_ms(lambda: correlation.correlation2d_bwd_plain(f1, f2, g_, 4)),
+               max(errors(a, b_)[0] for a, b_ in zip(grads, refs)),
+               max(max_rel(a, b_) for a, b_ in zip(grads, refs)))
 
     mdta_shapes, gdfn_shapes = [], []
     for h, w, c, n in LEVELS:
@@ -420,13 +477,22 @@ def phase_kernels(dev):
         dwconv_case(*shape)
         dwconv_case(*shape, plans=(dwconv.dwconv_plan(*shape, sms, rh=7),
                                    dwconv.dwconv_plan(*shape, sms, backward=True, rh=7, nb=5)))
+    # correlation: each edge shape under the default plans and under
+    # CORR_EDGE_PLAN
+    for shape in CORR_EDGE_SHAPES:
+        corr_case(*shape)
+        corr_case(*shape, plans=tuple(correlation.correlation_plan(
+            *shape, backward=bwd, **CORR_EDGE_PLAN) for bwd in (False, True)))
     print(f"  edge shapes: gdfn {len(gdfn_edges)} (C 32/64/81/96/128/192 x 2- and 6-row "
           f"tiles cut by the edge), fps {len(fps_edges)} (ties, ragged N, n_samples = N), "
           f"mdta {len(mdta_edges)} (tiles cut by the edge, one token, ragged point runs, "
           "C 32-192, a batch beyond one wave of blocks; two calls bitwise equal), dwconv "
           f"{2 * len(DWCONV_EDGE_SHAPES)} (tiles and strips cut by the edge, W = 1, H = 1, "
           "C 3-1020, ragged point runs, a batch beyond one wave of blocks; two backward calls "
-          "bitwise equal): all within tolerance", flush=True)
+          "bitwise equal), correlation "
+          f"{2 * len(CORR_EDGE_SHAPES)} (tiles cut by the edge, C = 3, 20, 81, d = 0, 1, 4, "
+          "B = 1, one pixel; two backward calls bitwise equal): all within tolerance",
+          flush=True)
     return results
 
 
@@ -746,6 +812,9 @@ def phase_train_flagship(dev):
     dt = (time.perf_counter() - t0) / len(batches)
     print(f"  launches in one train step: {launches}")
     check_launches("train step", launches)
+    if launches["correlation2d_bwd"] != len(LEVELS):
+        raise AssertionError(f"train step: {launches['correlation2d_bwd']} correlation "
+                             f"backward launches, {len(LEVELS)} expected")
     for i, sm in enumerate(losses):
         print(f"  step {i + 1}: loss {sm['loss']:.4f} (2d {sm['loss_2d']:.4f}, 3d "
               f"{sm['loss_3d']:.4f}, mi {sm['mi_loss']:.6f}), grad_norm {sm['grad_norm']:.3f}")
@@ -832,9 +901,10 @@ def main():
     kernels = []
     for name, (src, rep) in SOURCES.items():
         r = kernel_results[name]
+        path_launches = eval_launches if name in EXPECTED["eval forward"] else train_launches
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": eval_launches[name], "launches_train_step": train_launches[name],
+            "launches": path_launches[name], "launches_train_step": train_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": max(r["bound"], key=r["bound"].get),
             "share": r["bound_ms"] / r["ms"], "library_ms": r["library_ms"]})

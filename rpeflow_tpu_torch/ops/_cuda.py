@@ -36,14 +36,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel wrapper; see :func:`reset_launch_counts`.
-LAUNCHES = {"fps": 0, "correlation2d": 0, "mdta_qkv": 0, "gdfn": 0, "dwconv": 0}
+LAUNCHES = {"fps": 0, "correlation2d": 0, "correlation2d_bwd": 0, "mdta_qkv": 0, "gdfn": 0,
+            "dwconv": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # name: (argtypes, restype)
     "rpeflow_fps": ((_P, _I, _I, _I, _P, _P), _I),
-    "rpeflow_correlation2d": ((_P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
+    "rpeflow_correlation2d": ((_P, _P, _P, _P, _P), _I),
+    "rpeflow_correlation2d_bwd": ((_P, _P, _P, _P, _P, _P, _P), _I),
     "rpeflow_mdta_smem_bytes": ((_I, _I, _I, _I), ctypes.c_longlong),
     "rpeflow_mdta_qkv": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P), _I),
     "rpeflow_gdfn": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),

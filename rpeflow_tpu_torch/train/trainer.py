@@ -2,7 +2,12 @@
 
 The epoch loop, per-step logging, validation with dataset-weighted means,
 the best checkpoint by validation ``outlier2d`` and epoch-granular resume
-follow the JAX trainer (and upstream train.py). Data comes from the port's
+follow the JAX trainer (and upstream train.py), and so do its summaries:
+where ``tensorboardX`` imports, TensorBoard scalars ``train/<k>`` and
+``train/lr`` at every step, ``val/<k>`` and the predicted-flow image
+``val/flow_2d_pred`` of the first validation sample at every validation;
+``log.profile_steps: [start, stop]`` records those steps of each epoch with
+``torch.profiler`` into ``<log.dir>/profile``. Data comes from the port's
 own host layer (``rpeflow_tpu_torch.data``, ``.factory``), imported only
 when no batches are given: reading a dataset needs h5py. A caller without it
 passes the batch iterables itself (``train_batches``, ``val_batches``: each
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from ..model import DEFAULT_N_SAMPLES, RPEFlow, is_better
+from ..utils.visualization import flow_to_image
 from .checkpoint import load_weights, restore_checkpoint, save_checkpoint
 from .optim import optimizer_factory
 from .precision import use_f32
@@ -67,6 +73,12 @@ class Trainer:
         self.log_dir = cfgs.log.dir
         os.makedirs(self.log_dir, exist_ok=True)
         init_logging(os.path.join(self.log_dir, "train.log"))
+        try:
+            from tensorboardX import SummaryWriter
+
+            self.summary_writer = SummaryWriter(self.log_dir)
+        except ImportError:
+            self.summary_writer = None
 
         if train_batches is None:
             train_batches, val_batches = self._loaders()
@@ -134,37 +146,70 @@ class Trainer:
             if (self.cfgs.log.save_ckpt
                     and self.curr_epoch % self.cfgs.log.save_ckpt_every_n_epochs == 0):
                 self.save_ckpt("epoch-%03d" % self.curr_epoch)
+            if self.summary_writer is not None:
+                self.summary_writer.flush()
             self.curr_epoch += 1
+
+    def _profiler(self) -> torch.profiler.profile:
+        """A ``torch.profiler`` trace of the ``log.profile_steps`` window,
+        written to ``<log.dir>/profile`` when stopped."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(activities=acts, on_trace_ready=(
+            torch.profiler.tensorboard_trace_handler(os.path.join(self.log_dir, "profile"))))
 
     def train_one_epoch(self) -> None:
         logging.info("Epoch %d: training...", self.curr_epoch)
         self.model.train()
+        profile_steps = getattr(self.cfgs.log, "profile_steps", None)
+        prof = None
         t_end = time.time()
         for i, batch in enumerate(self.train_batches):
+            if profile_steps and i == int(profile_steps[0]):
+                prof = self._profiler()
+                prof.start()
+            if prof is not None and i == int(profile_steps[1]):
+                prof.stop()
+                prof = None
             t_data = time.time() - t_end
             summary = train_step(self.model, self.optimizer, to_device(batch, self.device),
                                  self.generator)
             t_total = time.time() - t_end
             t_end = time.time()
+            step, lr = self.optimizer.step_count, self.optimizer.lr
             logging.info("E%d S%d [%d/%d] %s, lr: %.2e, time: %.2fs (data %.2fs)",
-                         self.curr_epoch, self.optimizer.step_count, i + 1,
-                         self.steps_per_epoch, log_string(summary), self.optimizer.lr,
-                         t_total, t_data)
+                         self.curr_epoch, step, i + 1, self.steps_per_epoch,
+                         log_string(summary), lr, t_total, t_data)
+            if self.summary_writer is not None:
+                for k, v in summary.items():
+                    self.summary_writer.add_scalar(f"train/{k}", v, step)
+                self.summary_writer.add_scalar("train/lr", lr, step)
+        if prof is not None:  # the window reaches past the epoch's last step
+            prof.stop()
 
     def validate(self) -> Dict[str, float]:
         """Dataset-weighted means of the per-batch summaries."""
         logging.info("Epoch %d: validating...", self.curr_epoch)
         sums: Dict[str, float] = {}
         n_total = 0
-        for batch in self.val_batches:
+        step = self.optimizer.step_count
+        for bi, batch in enumerate(self.val_batches):
             tb = to_device(batch, self.device)
             bs = tb["images"].shape[0]
-            _, summary = eval_step(self.model, tb)
+            outputs, summary = eval_step(self.model, tb)
+            if bi == 0 and self.summary_writer is not None:
+                # the predicted flow of the first validation sample
+                img = flow_to_image(outputs["flow_2d"][0].cpu().numpy())
+                self.summary_writer.add_image("val/flow_2d_pred", img, step, dataformats="HWC")
             for k, v in summary.items():
                 sums[k] = sums.get(k, 0.0) + v * bs
             n_total += bs
         avg = {k: v / n_total for k, v in sums.items()}
         logging.info("Validation: %s", log_string(avg, with_mi=False))
+        if self.summary_writer is not None:
+            for k, v in avg.items():
+                self.summary_writer.add_scalar(f"val/{k}", v, step)
         return avg
 
     def save_ckpt(self, name: str) -> str:

@@ -55,7 +55,10 @@ def test_port_imports_no_module_of_the_jax_package(probe):
 
 
 def _port_sources():
+    """chip_smoke.py, the package, and the port's scripts (scripts/torch_*.py)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "scripts", n) for n in os.listdir(os.path.join(REPO, "scripts"))
+              if n.startswith("torch_") and n.endswith(".py")]
     for root, _, names in os.walk(os.path.join(REPO, "rpeflow_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -87,10 +90,11 @@ def test_cpu_tensors_take_the_plain_path(rng):
     x = torch.from_numpy(rng.randn(1, 6, 7, 8).astype(np.float32))
     fps.furthest_point_sampling(torch.from_numpy(rng.randn(1, 20, 3).astype(np.float32)), 5)
     correlation.correlation2d(x, x, 4)
+    correlation.correlation2d_bwd(x, x, torch.ones(1, 6, 7, 81), 4)
     mdta.mdta_qkv(x, x, torch.ones(4, 8), torch.ones(3, 3, 24), 3)
     gdfn.gdfn(x, torch.ones(8, 10), torch.ones(3, 3, 10), torch.ones(5, 8))
     dwconv.dwconv(x, torch.ones(3, 3, 8))
     dwconv.dwconv_bwd(x, x, torch.ones(3, 3, 8))
-    assert _cuda.LAUNCHES == {"fps": 0, "correlation2d": 0, "mdta_qkv": 0, "gdfn": 0,
-                              "dwconv": 0}
+    assert _cuda.LAUNCHES == {"fps": 0, "correlation2d": 0, "correlation2d_bwd": 0,
+                              "mdta_qkv": 0, "gdfn": 0, "dwconv": 0}
     assert _cuda._lib is None, "a CPU call must not build or load the kernel library"

@@ -6,7 +6,9 @@ machine that has only PyTorch:
     RPEFLOW_TEST_TPU=1 python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 
 (``RPEFLOW_TEST_TPU=1`` keeps tests/conftest.py from setting up JAX.)
-Tolerances: FPS indices equal (ties included); correlation atol 1e-5; MDTA v atol 1e-5,
+Tolerances: FPS indices equal (ties included); correlation atol 1e-5, each
+gradient of its fused backward within 1e-5 of its largest entry, two
+backward calls bitwise equal; MDTA v atol 1e-5,
 qk/sq within 1e-4 of their largest entry, two calls bitwise equal; GDFN rtol 1e-4, atol 1e-5;
 depthwise conv and its input gradient atol 1e-5, its taps gradient (a sum
 over every pixel) within 1e-4 of its largest entry, two backward calls
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, fps, gdfn, mdta
-from chip_smoke import DWCONV_EDGE_SHAPES
+from chip_smoke import CORR_EDGE_PLAN, CORR_EDGE_SHAPES, DWCONV_EDGE_SHAPES
 from torch_port_utils import MDTA_EDGE_SHAPES, MDTA_FLAGSHIP_SHAPES
 from torch_port_utils import cuda_device  # noqa: F401
 
@@ -62,6 +64,60 @@ def test_correlation_kernel_matches_plain(cuda_device, shape):
     f2 = torch.randn(*shape, generator=g, device=cuda_device)
     out = correlation.correlation2d(f1, f2, 4)
     torch.testing.assert_close(out, correlation.correlation2d_plain(f1, f2, 4), atol=1e-5, rtol=0)
+
+
+def _corr_inputs(dev, b, h, w, c, d, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f1 = torch.randn(b, h, w, c, generator=g, device=dev)
+    f2 = torch.randn(b, h, w, c, generator=g, device=dev)
+    return f1, f2, torch.randn(b, h, w, (2 * d + 1) ** 2, generator=g, device=dev)
+
+
+def _assert_rel_close(out, ref, name, rel=1e-5):
+    err = float((out.double() - ref.double()).abs().max() / ref.double().abs().max())
+    assert err <= rel, f"{name}: error {err:.2e} of the largest entry"
+
+
+_CORR_CASES = [(4, 144, 240, 32, 4), (4, 72, 120, 64, 4), (4, 9, 15, 192, 4)] + CORR_EDGE_SHAPES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [False, True], ids=["plan", "th3-tw32"])
+@pytest.mark.parametrize("shape", _CORR_CASES)
+def test_correlation_fwd_bwd_match_plain(cuda_device, shape, forced):
+    """Flagship and edge shapes (tiles cut by the edge, C = 3, 20, 81, d = 0,
+    1, 4, B = 1, one pixel), under the default plans and under
+    CORR_EDGE_PLAN: the forward atol 1e-5, each gradient of the fused
+    backward within 1e-5 of its largest entry, one launch a wrapper call,
+    two backward calls bitwise equal."""
+    d = shape[-1]
+    f1, f2, g = _corr_inputs(cuda_device, *shape)
+    if forced:
+        fp, bp = (correlation.correlation_plan(*shape, backward=b, **CORR_EDGE_PLAN)
+                  for b in (False, True))
+        fwd = lambda: correlation.launch_fwd(f1, f2, fp)  # noqa: E731
+        bwd = lambda: correlation.launch_bwd(f1, f2, g, bp)  # noqa: E731
+    else:
+        fwd = lambda: correlation.correlation2d_fwd(f1, f2, d)  # noqa: E731
+        bwd = lambda: correlation.correlation2d_bwd(f1, f2, g, d)  # noqa: E731
+    _cuda.reset_launch_counts()
+    out, grads = fwd(), bwd()
+    assert _cuda.LAUNCHES["correlation2d"] == 1 and _cuda.LAUNCHES["correlation2d_bwd"] == 1
+    torch.testing.assert_close(out, correlation.correlation2d_plain(f1, f2, d), atol=1e-5, rtol=0)
+    for name, got, ref in zip(("grad1", "grad2"), grads,
+                              correlation.correlation2d_bwd_plain(f1, f2, g, d)):
+        _assert_rel_close(got, ref, name)
+    assert all(torch.equal(a, b) for a, b in zip(grads, bwd()))
+
+
+@pytest.mark.cuda
+def test_correlation_kernel_refuses_what_it_cannot_run(cuda_device):
+    f1, f2, g = _corr_inputs(cuda_device, 1, 8, 8, 32, 4)
+    bad = correlation.CorrPlan(1, 8, 8, 32, 4, 5, 16, False)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        correlation.launch_fwd(f1, f2, bad)
+    with pytest.raises(ValueError, match="max_displacement"):
+        correlation.correlation2d_fwd(f1, f2, 5)
 
 
 _MDTA_CASES = [((8, 144, 240, 32), 3), ((4, 9, 15, 192), 3), ((4, 36, 60, 81), 3),
