@@ -30,7 +30,18 @@ Phases, each of which raises on failure (exit code != 0):
      training shape (batch 4, 540x960 frames, 8192 + 8192 points), MI on,
      one warm-up and five timed steps, launches of every kernel in one step
      (five of the correlation's backward), then a checkpoint loaded strictly
-     into the eval model.
+     into the eval model;
+  9. data parallelism (rpeflow_tpu_torch.parallel) on the card: (a) the
+     reduced step of phase 7 at batch 2, MI on, inside a one-rank NCCL group
+     against the same step with no group, under phase 7's bounds, with the
+     collectives of one step by call site; (b) two gloo ranks spawned on
+     this card, one sample each, against the same one-process step at batch
+     2, their parameters bitwise equal; (c) phase 8's training through a
+     one-rank NCCL group: launches, ms/step and peak memory beside phase 8's;
+ 10. amp (bfloat16 in the two 2-D feature pyramids only): the pyramids and
+     the forward at phase 4's shape against the CPU's amp model, forward
+     hooks on every module, and phase 8's training with amp: ms/step and
+     peak memory.
 The second-to-last line is a JSON object of per-kernel results (phase 3's
 times, errors, bounds and library time summed over the shapes; the launches
 of one eval forward, phase 5, or, for the correlation's backward, which the
@@ -854,6 +865,306 @@ def phase_train_flagship(dev):
                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
+# Phases 9 and 10 run the reduced train step of phase 7 at batch 2 (one sample
+# a rank in 9(b)), MI on, with this seed for the weights and the MI noise
+DP = dict(REDUCED, b=2)
+DP_SEED = SEED + 5
+
+
+def step_breaches(record, ref_record, zero_grad):
+    """Phase 7's bounds between two train steps' :func:`step_record`: loss
+    rtol 1e-4, per-leaf gradients |d| <= 2e-3 max(|g|max, 1) + 1e-4, a bias
+    that feeds a batch norm held to 1e-6 of the largest gradient entry on
+    both sides, batch statistics rtol 1e-4, atol 1e-6. Returns the breaches
+    and the worst gradient's share of its bound."""
+    (out, grads, buffers), (ref, ref_grads, ref_buffers) = record, ref_record
+    bad, worst = [], 0.0
+    if not np.isfinite(out["loss"]) or abs(out["loss"] - ref["loss"]) > 1e-4 * abs(ref["loss"]):
+        bad.append(("loss", out["loss"], ref["loss"]))
+    g_max = max(float(g.abs().max()) for g in ref_grads.values())
+    for name, g_ref in ref_grads.items():
+        g = grads[name].cpu()
+        if name in zero_grad:
+            noise = max(float(g.abs().max()), float(g_ref.abs().max()))
+            if noise > 1e-6 * g_max:
+                bad.append((name, noise, g_max))
+            continue
+        d, scale = float((g - g_ref).abs().max()), float(g_ref.abs().max())
+        worst = max(worst, d / (2e-3 * max(scale, 1.0) + 1e-4))
+        if not _grad_bound_ok(d, scale):
+            bad.append((name, d, scale))
+    for name, buf in ref_buffers.items():
+        if name.endswith(("running_mean", "running_var")) and not torch.allclose(
+                buffers[name].cpu(), buf, rtol=1e-4, atol=1e-6):
+            bad.append((name, errors(buffers[name].cpu(), buf)[0], None))
+    return bad, worst
+
+
+def step_record(model, summary):
+    """(summary, gradients, buffers) of a model after a step, on the CPU."""
+    return (summary, {k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None},
+            {k: b.cpu() for k, b in model.named_buffers()})
+
+
+@contextlib.contextmanager
+def one_rank_group(backend="nccl"):
+    """A process group of this process alone, as torchrun's environment for
+    one rank makes it (``parallel.maybe_initialize_distributed``)."""
+    from rpeflow_tpu_torch.parallel import mesh
+    from rpeflow_tpu_torch.parallel.dryrun import free_port
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if not mesh.maybe_initialize_distributed("cuda", backend):
+            raise AssertionError("no process group from a one-rank torchrun environment")
+        yield
+    finally:
+        if mesh.is_distributed():
+            torch.distributed.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def rank_rows(t, rank, b):
+    """Rank ``rank``'s rows (one sample a rank) of a choice recorded on a
+    global batch of ``b``: its batch row, or for the two frames' stacked
+    searches (2b rows) its row of each frame."""
+    if t.shape[0] == b:
+        return t[rank:rank + 1]
+    if t.shape[0] != 2 * b:
+        raise AssertionError(f"recorded choice of {tuple(t.shape)} for a batch of {b}")
+    return torch.cat([t[rank:rank + 1], t[b + rank:b + rank + 1]])
+
+
+def _dp_rank(spec_path, out_dir):
+    """Body of one gloo rank of phase 9(b) on the spec's device (cuda:0):
+    the reduced step on its slice of the batch, replaying its rows of the
+    one-process choices."""
+    from rpeflow_tpu_torch.model import RPEFlow
+    from rpeflow_tpu_torch.ops import _cuda
+    from rpeflow_tpu_torch.parallel import mesh
+    from rpeflow_tpu_torch.train.optim import optimizer_factory
+    from rpeflow_tpu_torch.train.precision import use_f32
+    from rpeflow_tpu_torch.train.state import train_step
+
+    use_f32()
+    spec = torch.load(spec_path)
+    dev = torch.device(spec["device"])
+    mesh.maybe_initialize_distributed(dev, backend="gloo")
+    rank = mesh.process_index()
+    if dev.type == "cuda":
+        _cuda.lib()  # built by the parent: loads it
+    model = RPEFlow(model_cfg(), spec["n_samples"])
+    model.load_state_dict(spec["state"])
+    model.to(dev).train()
+    mesh.replicate(model)
+    opt = optimizer_factory(training_cfg(), model, steps_per_epoch=100)
+    batch = {k: t.to(dev) for k, t in mesh.shard_batch(spec["batch"]).items()}
+    tape = [rank_rows(t, rank, len(spec["batch"]["images"])) for t in spec["tape"]]
+    mesh.reset_collective_counts()
+    with shared_choices(tape, replay=True) as counts:
+        summary = train_step(model, opt, batch, torch.Generator(device=dev).manual_seed(DP_SEED))
+    torch.save({"record": step_record(model, summary), "counts": counts,
+                "params": {k: p.detach().cpu() for k, p in model.named_parameters()},
+                "collectives": dict(mesh.COLLECTIVES)},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def phase_dp_reduced(dev):
+    """9(a): the reduced step at batch 2, MI on, inside a one-rank NCCL group
+    against the same step with no group; 9(b): two gloo ranks on this card,
+    one sample each, against the same no-group step. Phase 7's bounds
+    (:func:`step_breaches`), the discrete choices replayed from the no-group
+    run (:func:`shared_choices`, ``REPLAY_BOUND``), and 9(b)'s two ranks'
+    parameters bitwise equal."""
+    from rpeflow_tpu_torch.model import RPEFlow, seeded_init_
+    from rpeflow_tpu_torch.parallel import mesh
+    from rpeflow_tpu_torch.parallel.dryrun import spawn_ranks
+    from rpeflow_tpu_torch.train.optim import optimizer_factory
+    from rpeflow_tpu_torch.train.state import train_step
+
+    init = seeded_init_(RPEFlow(model_cfg(), REDUCED_SAMPLES), DP_SEED).train()
+    zero_grad = pre_norm_biases(init)
+    batch = make_batch(DP_SEED, device="cpu", targets=True, **DP)
+
+    def run(tape, replay):
+        model = copy.deepcopy(init).to(dev)
+        opt = optimizer_factory(training_cfg(), model, steps_per_epoch=100)
+        with shared_choices(tape, replay=replay) as counts:
+            summary = train_step(model, opt, {k: t.to(dev) for k, t in batch.items()},
+                                 torch.Generator(device=dev).manual_seed(DP_SEED))
+        return step_record(model, summary), counts
+
+    tape = []
+    ref, _ = run(tape, replay=False)
+    if not ref[0]["mi_loss"]:
+        raise AssertionError("9(a): the MI loss is 0")
+    with one_rank_group():
+        mesh.reset_collective_counts()
+        out, counts = run(tape, replay=True)
+        collectives = dict(mesh.COLLECTIVES)
+    bad, worst = step_breaches(out, ref, zero_grad)
+    print(f"  9(a) one-rank NCCL group vs no group: loss {out[0]['loss']:.6f} vs "
+          f"{ref[0]['loss']:.6f}, grad_norm {out[0]['grad_norm']:.6f} vs "
+          f"{ref[0]['grad_norm']:.6f}; worst gradient at {worst:.3f} of its bound; replayed "
+          f"choices differing from its own: {counts}; collectives in one step: {collectives}",
+          flush=True)
+    if bad or any(d > REPLAY_BOUND[k] * n for k, (d, n) in counts.items()):
+        raise AssertionError(f"9(a) outside the bounds: {bad[:8]}, {counts}")
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = os.path.join(tmp, "spec.pt")
+        torch.save({"state": init.state_dict(), "batch": batch, "device": str(dev),
+                    "n_samples": REDUCED_SAMPLES, "tape": [t.cpu() for t in tape]}, spec)
+        t0 = time.perf_counter()
+        spawn_ranks(_dp_rank, 2, spec, tmp)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    print(f"  9(b) two gloo ranks on {dev}, batch 1 each ({time.perf_counter() - t0:.1f} s "
+          f"with start-up): collectives of rank 0: {ranks[0]['collectives']}", flush=True)
+    bad = []
+    for r, res in enumerate(ranks):
+        breaches, worst = step_breaches(res["record"], ref, zero_grad)
+        print(f"  rank {r}: loss {res['record'][0]['loss']:.6f} vs one process "
+              f"{ref[0]['loss']:.6f}; worst gradient at {worst:.3f} of its bound; replayed "
+              f"choices differing from its own: {res['counts']}", flush=True)
+        bad += breaches + [(f"rank {r} replayed {k}", d, n) for k, (d, n) in res["counts"].items()
+                           if d > REPLAY_BOUND[k] * n]
+    unequal = [k for k, p in ranks[0]["params"].items()
+               if not torch.equal(p, ranks[1]["params"][k])]
+    if bad or unequal:
+        raise AssertionError(f"9(b) outside the bounds: {bad[:8]}; parameters unequal across "
+                             f"ranks: {unequal[:8]}")
+    print(f"  9(b): both ranks within phase 7's bounds of one process at batch 2; "
+          f"{len(ranks[0]['params'])} parameters bitwise equal across the ranks", flush=True)
+
+
+def flagship_steps(dev, label, amp=False, steps=3):
+    """One warm-up and ``steps`` timed train steps of phase 8's model and
+    shape (MI on); every kernel of the path launched in the first timed step
+    (counts set to 0 just before it, read just after). Returns ms/step and
+    the peak GiB."""
+    from rpeflow_tpu_torch.model import RPEFlow, seeded_init_
+    from rpeflow_tpu_torch.ops import _cuda
+    from rpeflow_tpu_torch.parallel import mesh
+    from rpeflow_tpu_torch.train.optim import optimizer_factory
+    from rpeflow_tpu_torch.train.state import train_step
+
+    model = seeded_init_(RPEFlow(model_cfg(), N_SAMPLES, amp=amp), SEED).to(dev).train()
+    opt = optimizer_factory(training_cfg(), model, steps_per_epoch=100)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_step(model, opt, make_batch(SEED + 20, device=dev, targets=True, **TRAIN), gen)
+    batches = [make_batch(SEED + 21 + i, device=dev, targets=True, **TRAIN) for i in range(steps)]
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    mesh.reset_collective_counts()
+    t0 = time.perf_counter()
+    summaries = []
+    for i, bt in enumerate(batches):
+        summaries.append(train_step(model, opt, bt, gen))
+        if i == 0:
+            torch.cuda.synchronize()
+            launches, collectives = dict(_cuda.LAUNCHES), dict(mesh.COLLECTIVES)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    check_launches("train step", launches)
+    for i, sm in enumerate(summaries):
+        if not all(np.isfinite(v) for v in sm.values()) or sm["mi_loss"] == 0.0:
+            raise AssertionError(f"{label} step {i + 1}: {sm}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {label}: launches in one step {launches}; collectives {collectives}; losses "
+          f"{[round(sm['loss'], 4) for sm in summaries]}", flush=True)
+    return dt * 1e3, peak
+
+
+def phase_dp_flagship(dev, phase8):
+    """9(c): phase 8's training through a one-rank NCCL group."""
+    with one_rank_group():
+        ms, peak = flagship_steps(dev, "9(c) one-rank NCCL group")
+    b = TRAIN["b"]
+    print(f"  9(c) flagship train step in a one-rank NCCL group: {ms:.2f} ms/step at batch {b} "
+          f"(1 warm-up, 3 timed steps, MI on); peak device memory {peak:.2f} GiB; phase 8 "
+          f"without a group: {phase8['ms_per_step']:.2f} ms/step, {phase8['peak_gib']:.2f} GiB",
+          flush=True)
+
+
+def phase_amp(dev):
+    """amp on the card, at phase 4's shape against the CPU: each 2-D
+    pyramid level's bfloat16 output within 2^-6 of the level's largest entry
+    (4 bfloat16 steps there) and nearer, in mean |d|, to the CPU's amp output
+    than the CPU's float32 output is; the amp forward's flows in phase 4's
+    tolerance model; forward hooks showing that only the two 2-D pyramids
+    return bfloat16. Then phase 8's training with amp."""
+    from rpeflow_tpu_torch.model import RPEFlow, seeded_init_
+
+    batch = make_batch(SEED + 1, device="cpu", **REDUCED)
+    f32 = seeded_init_(RPEFlow(model_cfg(), REDUCED_SAMPLES), SEED)
+    amp = seeded_init_(RPEFlow(model_cfg(), REDUCED_SAMPLES, amp=True), SEED)
+    inputs = {"feature_pyramid_2d": batch["images"][..., :3].float() / 255.0,
+              "efeature_pyramid_2d": batch["event_voxel"]}
+    bad = []
+    with torch.inference_mode():
+        for name, x in inputs.items():
+            pyramids = [getattr(m.pwc_fusion_core, name) for m in (amp, f32)]
+            ref, ref_f32 = (pyr(x) for pyr in pyramids)
+            out = getattr(copy.deepcopy(amp).to(dev).pwc_fusion_core, name)(x.to(dev))
+            for level, (o, r, r32) in enumerate(zip(out, ref, ref_f32)):
+                d, d_bf16 = (o.cpu().double() - r.double()).abs(), (r32 - r.double()).abs()
+                print(f"  amp {name} level {level}: {o.dtype}, card vs CPU max|d| "
+                      f"{float(d.max()):.3e} of {float(r.abs().max()):.3f}, mean|d| "
+                      f"{float(d.mean()):.3e}; the CPU's f32 vs amp mean|d| "
+                      f"{float(d_bf16.mean()):.3e}", flush=True)
+                if (o.dtype != torch.bfloat16 or not float(d.mean()) < float(d_bf16.mean())
+                        or float(d.max()) > 2.0 ** -6 * float(r.abs().max())):
+                    bad.append((name, level))
+        ref = amp(batch)
+    amp.to(dev)
+    dtypes = {}
+    names = {m: n for n, m in amp.named_modules()}
+
+    def hook(module, args, output):
+        outs = output if isinstance(output, (list, tuple)) else [output]
+        dtypes.setdefault(names[module], set()).update(
+            t.dtype for t in outs if torch.is_tensor(t) and t.is_floating_point())
+
+    handles = [m.register_forward_hook(hook) for m in names]
+    try:
+        with torch.inference_mode():
+            out = amp({k: t.to(dev) for k, t in batch.items()})
+    finally:
+        for h in handles:
+            h.remove()
+    for key in ("flow_2d", "flow_3d"):
+        o, r = out[key].cpu().double(), ref[key].double()
+        d = (o - r).abs()
+        frac = float((d <= 2e-2 + 1e-3 * r.abs()).double().mean())
+        print(f"  amp {key}: card vs CPU within phase 4's tolerance {frac:.4%}, mean|d| "
+              f"{float(d.mean()):.3e}, max|d| {float(d.max()):.3e}", flush=True)
+        if out[key].dtype != torch.float32 or not torch.isfinite(o).all() or frac < 0.995 \
+                or float(d.mean()) >= 2e-2:
+            bad.append(key)
+    pyramids = ("pwc_fusion_core.feature_pyramid_2d.", "pwc_fusion_core.efeature_pyramid_2d.")
+    in_scope = {n for n in dtypes if f"{n}.".startswith(pyramids)}
+    wrong = [(n, s) for n, s in dtypes.items()
+             if not s <= ({torch.bfloat16} if n in in_scope else {torch.float32})]
+    print(f"  forward hooks: {len(in_scope)} modules of the two 2-D pyramids returned bfloat16, "
+          f"{len(dtypes) - len(in_scope)} others float32; outside that: {wrong[:4]}", flush=True)
+    if bad or wrong or len(in_scope) < 30:
+        raise AssertionError(f"amp card vs CPU: {bad}; dtypes {wrong[:8]}")
+    ms, peak = flagship_steps(dev, "amp flagship training", amp=True)
+    print(f"  amp flagship train step: {ms:.2f} ms/step at batch {TRAIN['b']} (1 warm-up, 3 "
+          f"timed steps, MI on); peak device memory {peak:.2f} GiB", flush=True)
+
+
 T0 = time.perf_counter()
 
 
@@ -896,7 +1207,14 @@ def main():
     phase("[7] train step, card vs CPU, batch 1, 128x192, 2048 points, MI off")
     phase_train_card_vs_cpu(dev)
     phase("[8] flagship training, pretrain.yaml model, 540x960, 8192 + 8192 points, MI on")
-    train_launches, _ = phase_train_flagship(dev)
+    train_launches, phase8 = phase_train_flagship(dev)
+    phase("[9] data parallelism: (a) one-rank NCCL group and (b) two gloo ranks vs one process, "
+          "batch 2, 128x192, 2048 points, MI on")
+    phase_dp_reduced(dev)
+    phase("[9] (c) flagship training in a one-rank NCCL group")
+    phase_dp_flagship(dev, phase8)
+    phase("[10] amp: bf16 in the two 2-D pyramids, card vs CPU at 128x192, flagship training")
+    phase_amp(dev)
 
     kernels = []
     for name, (src, rep) in SOURCES.items():

@@ -170,9 +170,11 @@ def _levels(make, n_levels: int) -> nn.ModuleList:
 class RPEFlowCore(nn.Module):
     """Encoder/decoder assembly. ``n_levels`` counts pyramid levels including
     level 0 (6 at full depth: the full cloud and 5 FPS levels, decoded over
-    levels 5..1)."""
+    levels 5..1). ``amp`` runs the RGB and event 2-D pyramids in bfloat16
+    (their norms in float32) and casts their outputs to float32, so that
+    nothing else of the model computes in bfloat16."""
 
-    def __init__(self, cfgs2d: Any, cfgs3d: Any, n_levels: int = 6):
+    def __init__(self, cfgs2d: Any, cfgs3d: Any, n_levels: int = 6, amp: bool = False):
         super().__init__()
         if not 2 <= n_levels <= 6:
             raise ValueError(f"n_levels must be in [2, 6], got {n_levels}")
@@ -184,10 +186,13 @@ class RPEFlowCore(nn.Module):
         # event pyramid channels per level: 32 at level 0, then _CH
         ev_ch = [32] + _CH[1:nl]
 
+        pyr_dtype = torch.bfloat16 if amp else None
         self.feature_pyramid_2d = FeaturePyramid2D([3] + _CH[:nl],
-                                                   norm=cfgs2d.norm.feature_pyramid)
+                                                   norm=cfgs2d.norm.feature_pyramid,
+                                                   dtype=pyr_dtype)
         self.efeature_pyramid_2d = FeaturePyramid2D([event_bins] + ev_ch,
-                                                    norm=cfgs2d.norm.feature_pyramid)
+                                                    norm=cfgs2d.norm.feature_pyramid,
+                                                    dtype=pyr_dtype)
         self.feature_aligners_2d = _levels(lambda i: ConvNormAct(_CH[i], 64), nl)
         self.efeature_aligners_2d = _levels(lambda i: ConvNormAct(ev_ch[i], 64), nl)
 
@@ -224,8 +229,9 @@ class RPEFlowCore(nn.Module):
         self.conv_last_3d = nn.Conv1d(64, 3, 1)
 
     def encode(self, image, xyzs):
-        """One frame's image pyramid and point pyramid."""
-        return self.feature_pyramid_2d(image), self.feature_pyramid_3d(xyzs)
+        """One frame's image pyramid (float32 at its boundary) and point pyramid."""
+        return ([f.float() for f in self.feature_pyramid_2d(image)],
+                self.feature_pyramid_3d(xyzs))
 
     def encode_both(self, image1, image2, xyzs1, xyzs2):
         """Both frames through the shared pyramids as one 2B batch (exact at
@@ -238,7 +244,7 @@ class RPEFlowCore(nn.Module):
                 [f[:b] for f in feats_3d], [f[b:] for f in feats_3d])
 
     def encode_event(self, event_voxel):
-        return self.efeature_pyramid_2d(event_voxel)
+        return [f.float() for f in self.efeature_pyramid_2d(event_voxel)]
 
     def decode_level(self, level: int, xyz1, xyz2, feat1_2d, feat2_2d, feat1_3d, feat2_3d,
                      efeat_2d, xyz1_up, camera: CameraInfo,

@@ -34,15 +34,18 @@ class RPEFlow(nn.Module):
     It is built in eval mode. In training mode (``.train()``) batch norm
     uses batch statistics and the frames are encoded and fused one at a
     time, as in the reference; with ``cfgs.freeze_bn`` the batch norms stay
-    in eval mode and the model computes as at evaluation.
+    in eval mode and the model computes as at evaluation. ``amp`` (the
+    training config's ``amp: true``) runs the two 2-D feature pyramids in
+    bfloat16 and nothing else (:class:`RPEFlowCore`).
     """
 
-    def __init__(self, cfgs: Any, n_samples_list: Sequence[int] = DEFAULT_N_SAMPLES):
+    def __init__(self, cfgs: Any, n_samples_list: Sequence[int] = DEFAULT_N_SAMPLES,
+                 amp: bool = False):
         super().__init__()
         self.cfgs = cfgs
         self.n_samples_list = tuple(n_samples_list)
         self.pwc_fusion_core = RPEFlowCore(cfgs.pwc2d, cfgs.pwc3d,
-                                           n_levels=len(self.n_samples_list) + 1)
+                                           n_levels=len(self.n_samples_list) + 1, amp=amp)
         self.eval()
 
     def train(self, mode: bool = True):

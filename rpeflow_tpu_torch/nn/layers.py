@@ -20,6 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_reduce_sum
+
 
 def apply_activation(x: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
     if activation is None:
@@ -54,18 +56,26 @@ def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Te
     one-pass form ``max(E[x^2] - E[x]^2, 0)``, and moves the running
     statistics 10% towards them (``torch.nn.BatchNorm`` would store the
     unbiased variance); otherwise it uses the running statistics.
-    Statistics are float32."""
+    Statistics are float32, and the output has the input's dtype.
+
+    The batch is the global one: the sums ``[sum x, sum x^2, n]`` are summed
+    over the data-parallel ranks (one differentiable all-reduce), so every
+    rank normalises with, and moves its running buffers by, the same
+    statistics as one process on the whole batch."""
     if not bn.training:
-        return batch_norm_eval(bn, x)
+        return batch_norm_eval(bn, x).to(x.dtype)
     xf = x.float()
     axes = tuple(range(x.dim() - 1))
-    mean = xf.mean(axes)
-    var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+    c = x.shape[-1]
+    sums = all_reduce_sum(torch.cat([xf.sum(axes), (xf * xf).sum(axes),
+                                     xf.new_full((1,), xf.numel() // c)]), "batch_norm")
+    mean = sums[:c] / sums[-1]
+    var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(0.9).add_(0.1 * mean)
         bn.running_var.mul_(0.9).add_(0.1 * var)
         bn.num_batches_tracked += 1
-    return (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+    return ((xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias).to(x.dtype)
 
 
 def pointwise(x: torch.Tensor, weight: torch.Tensor,
@@ -86,13 +96,16 @@ class ConvNormAct(nn.Module):
 
     ``n_spatial`` is 2 for ``[B, H, W, C]`` (and ``[B, N, k, C]``) inputs and
     1 for ``[B, N, C]`` point inputs; it fixes the conv weight's rank, as the
-    upstream Conv2d / Conv1d did.
+    upstream Conv2d / Conv1d did. With a ``dtype`` (the ``amp`` pyramids'
+    bfloat16) the conv takes its input and weight in that dtype and adds the
+    bias after it, in that dtype, as flax's ``nn.Conv(dtype=...)`` does; the
+    norm computes in float32 and casts back, the activation stays in it.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
                  norm: Optional[str] = None, activation: Optional[str] = "leaky_relu",
-                 n_spatial: int = 2):
+                 n_spatial: int = 2, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if n_spatial == 1 and kernel_size != 1:
             raise NotImplementedError("point convs are pointwise")
@@ -110,14 +123,22 @@ class ConvNormAct(nn.Module):
         # channels-last input corrupts the heap)
         self.pointwise = kernel_size == 1 and padding == 0
         self.stride = stride
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv, dtype = self.conv_fn, self.dtype
+        weight, bias = conv.weight, conv.bias
+        if dtype is not None:
+            x, weight, bias = x.to(dtype), weight.to(dtype), None
         if self.pointwise:
             if self.stride != 1:
                 x = x[:, ::self.stride, ::self.stride]
-            x = pointwise(x, self.conv_fn.weight, self.conv_fn.bias)
+            x = pointwise(x, weight, bias)
         else:
-            x = conv2d_nhwc(x, self.conv_fn)
+            x = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, conv.stride, conv.padding,
+                         conv.dilation, conv.groups).permute(0, 2, 3, 1)
+        if dtype is not None:
+            x = x + conv.bias.to(dtype)
         if self.norm == "batch_norm":
             x = batch_norm(self.norm_fn, x)
         elif self.norm == "instance_norm":

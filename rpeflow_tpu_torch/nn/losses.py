@@ -1,6 +1,13 @@
 """Supervised multi-scale 2-D / 3-D flow losses (counterpart of
 rpeflow_tpu/nn/losses.py). Channels-last: flow_2d ``[B, H, W, 2|3]``,
 flow_3d ``[B, N, 3|4]``; a last extra target channel is a validity mask.
+
+Under data parallelism a masked mean is over the global batch: each loss
+sums its masks' counts over the ranks (one all-reduce per loss), and each
+rank's term is scaled so that the mean of the ranks' losses -- which the
+averaged gradients differentiate -- is the global masked mean. The plain
+means are means over the rank's equal share of the batch, whose mean over
+ranks is already the global one.
 """
 
 from __future__ import annotations
@@ -11,12 +18,21 @@ import torch
 
 from ..ops.gather import batch_gather
 from ..ops.interp import resize_flow2d
+from ..parallel.mesh import all_reduce_sum, process_count
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of x over elements where mask (torch ``x[mask].mean()``, 0 if empty)."""
+def _global_counts(masks) -> torch.Tensor:
+    """The number of True elements of each mask, summed over the ranks."""
+    return all_reduce_sum(torch.stack([m.float().sum() for m in masks]), "loss mask counts")
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """Mean of x over elements where mask (torch ``x[mask].mean()``, 0 if
+    empty), ``count`` being the global number of them: this rank's sum over
+    ``count``, times the number of ranks, so that the mean over ranks is the
+    global masked mean."""
     m = mask.float()
-    return (x.float() * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (x.float() * m).sum() * process_count() / torch.clamp(count, min=1.0)
 
 
 def _abs(x: torch.Tensor) -> torch.Tensor:
@@ -51,6 +67,7 @@ def supervised_loss_2d(flows, target: torch.Tensor, cfg) -> torch.Tensor:
         mask = target[..., 2] > 0
     else:
         mask = torch.ones(target.shape[:3], dtype=torch.bool, device=target.device)
+    count = _global_counts([mask])[0]
     tgt = target[..., :2].float()
     total = 0.0
     for pred, w in zip(flows, weights):
@@ -59,7 +76,7 @@ def supervised_loss_2d(flows, target: torch.Tensor, cfg) -> torch.Tensor:
             loss_map = torch.pow(diff.sum(-1) + 0.01, 0.4)
         else:
             loss_map = _safe_norm(diff)
-        total = total + w * _masked_mean(loss_map, mask)
+        total = total + w * _masked_mean(loss_map, mask, count)
     return total
 
 
@@ -69,17 +86,18 @@ def supervised_loss_3d(flows, target: torch.Tensor, cfg, indices) -> torch.Tenso
     if cfg.order not in ("l1", "l2"):
         raise NotImplementedError(cfg.order)
     weights = _level_weights(cfg, len(flows))
+    targets = [(target if target.shape[1] == flow.shape[1] else batch_gather(
+        target, indices[i])).float() for i, flow in enumerate(flows)]
+    if target.shape[-1] == 4:
+        counts = _global_counts([t[..., 3] > 0 for t in targets])
     total = 0.0
-    for i, (flow, w) in enumerate(zip(flows, weights)):
-        level_target = target if target.shape[1] == flow.shape[1] else batch_gather(
-            target, indices[i])
-        level_target = level_target.float()
+    for i, (flow, level_target, w) in enumerate(zip(flows, targets, weights)):
         flow = flow.float()
         if level_target.shape[-1] == 4:
             mask = level_target[..., 3] > 0
             diff = flow - level_target[..., :3]
-            epe_l1 = _masked_mean(torch.pow(_abs(diff).sum(-1) + 0.01, 0.4), mask)
-            epe_l2 = _masked_mean(_safe_norm(diff), mask)
+            epe_l1 = _masked_mean(torch.pow(_abs(diff).sum(-1) + 0.01, 0.4), mask, counts[i])
+            epe_l2 = _masked_mean(_safe_norm(diff), mask, counts[i])
         else:
             diff = flow - level_target
             epe_l1 = torch.pow(_abs(diff).sum(-1) + 0.01, 0.4).mean()

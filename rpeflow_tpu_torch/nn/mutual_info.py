@@ -13,7 +13,9 @@ the JAX package (and upstream):
 
 The reparametrisation noise comes from :func:`draw_noise` with the
 ``torch.Generator`` the caller passes (tests replace the function to inject
-the noise).
+the noise). Under data parallelism every rank draws the global batch's
+noise from a generator in the same state and keeps its own slice, as each
+device of the JAX package takes its slice of one global draw.
 """
 
 from __future__ import annotations
@@ -24,12 +26,17 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from ..parallel.mesh import process_count, process_index
 from .layers import ConvNormAct
 
 
 def draw_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
-    """Standard normal noise of ``shape`` on ``device`` from ``generator``."""
-    return torch.randn(shape, generator=generator, device=device)
+    """Standard normal noise of ``shape`` (leading axis: the rank's batch) on
+    ``device`` from ``generator``: this rank's slice of the global batch's
+    draw, so that it equals one process's draw on the whole batch."""
+    world, rank = process_count(), process_index()
+    full = torch.randn((shape[0] * world, *shape[1:]), generator=generator, device=device)
+    return full[rank * shape[0]:(rank + 1) * shape[0]]
 
 
 def _l2norm_feat(x: torch.Tensor) -> torch.Tensor:

@@ -12,16 +12,18 @@ from .layers import ConvNormAct, conv2d_nhwc, pointwise
 
 
 class ResidualBlock(nn.Module):
-    """Stride-2 residual block."""
+    """Stride-2 residual block; its convs compute in ``dtype`` (see
+    :class:`ConvNormAct`)."""
 
-    def __init__(self, in_channels: int, out_channels: int, norm: Optional[str] = None):
+    def __init__(self, in_channels: int, out_channels: int, norm: Optional[str] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.down0 = ConvNormAct(in_channels, out_channels, 1, stride=2, norm=norm,
-                                 activation=None)
+                                 activation=None, dtype=dtype)
         self.conv0 = ConvNormAct(in_channels, out_channels, 3, stride=2, padding=1,
-                                 norm=norm)
+                                 norm=norm, dtype=dtype)
         self.conv1 = ConvNormAct(out_channels, out_channels, 3, padding=1, norm=norm,
-                                 activation=None)
+                                 activation=None, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         down = self.down0(x)
@@ -31,12 +33,14 @@ class ResidualBlock(nn.Module):
 
 class FeaturePyramid2D(nn.Module):
     """Stride-2 pyramid: ``n_channels[0]`` input channels, one block per
-    following entry; returns every block's output."""
+    following entry; returns every block's output, in ``dtype`` if one is
+    given (the ``amp`` scope)."""
 
-    def __init__(self, n_channels: Sequence[int], norm: Optional[str] = None):
+    def __init__(self, n_channels: Sequence[int], norm: Optional[str] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.pyramid_convs = nn.ModuleList(
-            ResidualBlock(n_channels[i], n_channels[i + 1], norm)
+            ResidualBlock(n_channels[i], n_channels[i + 1], norm, dtype)
             for i in range(len(n_channels) - 1))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:

@@ -17,6 +17,7 @@ that its main path went through the kernels.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -140,11 +141,21 @@ def sm_count(device: torch.device | int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def stream() -> int:
-    """The current CUDA stream of the current device, as an address
-    (``torch.cuda.current_stream().cuda_stream`` without building a Stream
-    object: a few microseconds less per kernel call)."""
-    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device``, as an address
+    (``torch.cuda.current_stream(device).cuda_stream`` without building a
+    Stream object: a few microseconds less per kernel call)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@contextlib.contextmanager
+def on_device(device: torch.device):
+    """Make ``device`` the current device for a launch, and yield the address
+    of its current stream. The CUDA runtime launches on the calling thread's
+    current device, which need not be the one the operands are on (a rank on
+    ``cuda:1`` that never set its device would launch on device 0)."""
+    with torch.cuda.device(device):
+        yield stream(device)
 
 
 def check(err: int, name: str) -> None:

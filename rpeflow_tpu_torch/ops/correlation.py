@@ -173,9 +173,10 @@ def launch_fwd(f1: torch.Tensor, f2: torch.Tensor, plan: CorrPlan) -> torch.Tens
     _check("correlation2d", f1, f2)
     _check_plan("correlation2d", plan, f1, backward=False)
     out = torch.empty(*f1.shape[:3], plan.k, dtype=torch.float32, device=f1.device)
-    _cuda.check(_cuda.lib().rpeflow_correlation2d(
-        f1.data_ptr(), f2.data_ptr(), out.data_ptr(), plan.c_plan[1], _cuda.stream()),
-        "correlation2d")
+    with _cuda.on_device(f1.device) as stream:
+        _cuda.check(_cuda.lib().rpeflow_correlation2d(
+            f1.data_ptr(), f2.data_ptr(), out.data_ptr(), plan.c_plan[1], stream),
+            "correlation2d")
     _cuda.LAUNCHES["correlation2d"] += 1
     return out
 
@@ -202,9 +203,10 @@ def launch_bwd(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor, plan: CorrPl
     n = f1.numel()
     buf = torch.empty(2 * n, dtype=torch.float32, device=f1.device)
     grad1, grad2 = buf[:n].view(f1.shape), buf[n:].view(f1.shape)
-    _cuda.check(_cuda.lib().rpeflow_correlation2d_bwd(
-        f1.data_ptr(), f2.data_ptr(), g.data_ptr(), grad1.data_ptr(), grad2.data_ptr(),
-        plan.c_plan[1], _cuda.stream()), "correlation2d_bwd")
+    with _cuda.on_device(f1.device) as stream:
+        _cuda.check(_cuda.lib().rpeflow_correlation2d_bwd(
+            f1.data_ptr(), f2.data_ptr(), g.data_ptr(), grad1.data_ptr(), grad2.data_ptr(),
+            plan.c_plan[1], stream), "correlation2d_bwd")
     _cuda.LAUNCHES["correlation2d_bwd"] += 1
     return grad1, grad2
 

@@ -191,8 +191,9 @@ def launch_fwd(x: torch.Tensor, taps: torch.Tensor, plan: DwPlan) -> torch.Tenso
     _cuda.require_cuda("dwconv", x, taps)
     _check_plan("dwconv", plan, x, taps, backward=False)
     out = torch.empty_like(x)
-    _cuda.check(_cuda.lib().rpeflow_dwconv(
-        x.data_ptr(), taps.data_ptr(), out.data_ptr(), plan.c_plan[1], _cuda.stream()), "dwconv")
+    with _cuda.on_device(x.device) as stream:
+        _cuda.check(_cuda.lib().rpeflow_dwconv(
+            x.data_ptr(), taps.data_ptr(), out.data_ptr(), plan.c_plan[1], stream), "dwconv")
     _cuda.LAUNCHES["dwconv"] += 1
     return out
 
@@ -224,10 +225,11 @@ def launch_bwd(x: torch.Tensor, g: torch.Tensor, taps: torch.Tensor, plan: DwPla
     dx = buf.as_strided(x.shape, x.stride(), 0) if need_dx else None
     dtaps = buf.as_strided(taps.shape, (3 * plan.c, plan.c, 1), n_dx) if need_dtaps else None
     base = buf.data_ptr()
-    _cuda.check(_cuda.lib().rpeflow_dwconv_bwd(
-        x.data_ptr(), g.data_ptr(), taps.data_ptr(), base, base + 4 * n_dx,
-        base + 4 * (n_dx + n_taps), plan.c_plan[1], int(need_dx), int(need_dtaps),
-        _cuda.stream()), "dwconv_bwd")
+    with _cuda.on_device(x.device) as stream:
+        _cuda.check(_cuda.lib().rpeflow_dwconv_bwd(
+            x.data_ptr(), g.data_ptr(), taps.data_ptr(), base, base + 4 * n_dx,
+            base + 4 * (n_dx + n_taps), plan.c_plan[1], int(need_dx), int(need_dtaps),
+            stream), "dwconv_bwd")
     _cuda.LAUNCHES["dwconv"] += 1
     return dx, dtaps
 

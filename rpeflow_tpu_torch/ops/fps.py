@@ -50,7 +50,8 @@ def furthest_point_sampling(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
         raise ValueError(f"fps: {n} points exceed the kernel's {MAX_POINTS}")
     _cuda.require_cuda("fps", xyz)
     out = torch.empty(b, n_samples, dtype=torch.int32, device=xyz.device)
-    _cuda.check(_cuda.lib().rpeflow_fps(xyz.data_ptr(), b, n, n_samples,
-                                        out.data_ptr(), _cuda.stream()), "fps")
+    with _cuda.on_device(xyz.device) as stream:
+        _cuda.check(_cuda.lib().rpeflow_fps(xyz.data_ptr(), b, n, n_samples,
+                                            out.data_ptr(), stream), "fps")
     _cuda.LAUNCHES["fps"] += 1
     return out

@@ -49,9 +49,10 @@ def gdfn_fwd(x: torch.Tensor, w_in: torch.Tensor, w_dw: torch.Tensor,
         raise ValueError(f"gdfn: {c} channels exceed the kernel's {MAX_CHANNELS}")
     _cuda.require_cuda("gdfn", x, w_in, w_dw, w_out)
     out = torch.empty_like(x)
-    _cuda.check(_cuda.lib().rpeflow_gdfn(
-        x.data_ptr(), w_in.data_ptr(), w_dw.data_ptr(), w_out.data_ptr(), out.data_ptr(),
-        b, h, w, c, hidden, _cuda.stream()), "gdfn")
+    with _cuda.on_device(x.device) as stream:
+        _cuda.check(_cuda.lib().rpeflow_gdfn(
+            x.data_ptr(), w_in.data_ptr(), w_dw.data_ptr(), w_out.data_ptr(), out.data_ptr(),
+            b, h, w, c, hidden, stream), "gdfn")
     _cuda.LAUNCHES["gdfn"] += 1
     return out
 

@@ -194,9 +194,10 @@ def launch_qkv(x, y, ln, dw, plan: MdtaPlan):
     qk = out.as_strided((b, c, c), (c * c, c, 1), n_v)
     sq = out.as_strided((b, 2, c), (2 * c, c, 1), n_qk)
     base = out.data_ptr()
-    _cuda.check(_cuda.lib().rpeflow_mdta_qkv(
-        x.data_ptr(), y.data_ptr(), ln.data_ptr(), dw.data_ptr(), base, base + 4 * n_v,
-        base + 4 * n_qk, base + 4 * n_out, plan.c_plan[1], _cuda.stream()), "mdta_qkv")
+    with _cuda.on_device(x.device) as stream:
+        _cuda.check(_cuda.lib().rpeflow_mdta_qkv(
+            x.data_ptr(), y.data_ptr(), ln.data_ptr(), dw.data_ptr(), base, base + 4 * n_v,
+            base + 4 * n_qk, base + 4 * n_out, plan.c_plan[1], stream), "mdta_qkv")
     _cuda.LAUNCHES["mdta_qkv"] += 1
     return v, qk, sq
 

@@ -6,6 +6,11 @@ The host data layer is the port's own copy of the JAX package's
 (``rpeflow_tpu_torch.data``, ``.train.config``, ``.train.factory``); reading
 a dataset needs h5py (and cv2 for raw files), so it is imported only by
 :class:`Evaluator`, never by the model.
+
+Under torchrun each rank evaluates its contiguous slice of every global
+batch, and the metric sums are summed over the ranks batch by batch; a rank
+whose slice of a short last batch is empty adds zeros (the forward, with
+running batch-norm statistics, has no collective of its own).
 """
 
 from __future__ import annotations
@@ -18,10 +23,14 @@ import numpy as np
 import torch
 
 from ..compat import load_checkpoint
-from ..model import DEFAULT_N_SAMPLES, RPEFlow
+from ..parallel.mesh import all_reduce_, maybe_initialize_distributed, process_count, process_index
 from .precision import use_f32
 
 MODEL_KEYS = ("images", "pcs", "event_voxel", "intrinsics")
+#: the keys of :func:`_metric_sums`, in its order
+SUM_KEYS = ("2d/counts", "2d/EPE2d", "2d/1px", "2d/Fl", "3d/counts", "3d/EPE3d", "3d/5cm",
+            "3d/10cm")
+NOC_SUM_KEYS = ("3dnoc/counts", "3dnoc/EPE3d", "3dnoc/5cm", "3dnoc/10cm")
 
 
 def _metric_sums(outputs, batch, with_occ: bool) -> Dict[str, torch.Tensor]:
@@ -104,27 +113,33 @@ def report(totals: Dict[str, float], times, with_occ: bool) -> Dict[str, float]:
 
 
 class Evaluator:
-    """``with_occ=True`` mirrors eval_withocc.py, ``False`` eval_noocc.py."""
+    """``with_occ=True`` mirrors eval_withocc.py, ``False`` eval_noocc.py.
+    The model computes in float32 (no ``amp``), as the JAX evaluator's."""
 
     def __init__(self, cfgs, with_occ: bool = True, device: str | torch.device = "cuda"):
         from ..data.loader import DataLoader
-        from .factory import dataset_factory
+        from .factory import dataset_factory, model_factory
 
         use_f32()
+        maybe_initialize_distributed(device)
+        self.rank, self.world = process_index(), process_count()
         self.cfgs = cfgs
         self.with_occ = with_occ
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if cfgs.model.batch_size % self.world:
+            raise ValueError(f"batch size {cfgs.model.batch_size} does not divide over "
+                             f"{self.world} ranks")
         logging.info("Loading test set from %s", cfgs.testset.root_dir)
         self.dataset = dataset_factory(cfgs.testset)
         self.loader = DataLoader(
             self.dataset, cfgs.model.batch_size, shuffle=False,
             num_workers=int(getattr(cfgs.testset, "n_workers", 2)),
-            use_process_pool=getattr(cfgs.testset, "use_process_pool", None))
+            use_process_pool=getattr(cfgs.testset, "use_process_pool", None),
+            shard_index=self.rank, num_shards=self.world)
         logging.info("Creating model: %s", cfgs.model.name)
-        if cfgs.model.name != "RPEFlow":
-            raise NotImplementedError(f"Unknown model name: {cfgs.model.name}")
-        self.model = RPEFlow(cfgs.model, tuple(getattr(cfgs.model, "n_samples",
-                                                       DEFAULT_N_SAMPLES)))
+        self.model = model_factory(cfgs.model)
         logging.info("Loading checkpoint from %s", cfgs.ckpt.path)
         load_checkpoint(self.model, cfgs.ckpt.path,
                         strict=bool(getattr(cfgs.ckpt, "strict", True)))
@@ -134,7 +149,8 @@ class Evaluator:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def run(self) -> Dict[str, float]:
+    def run(self) -> Dict[str, float] | None:
+        """The dataset's metrics (on rank 0; None on the other ranks)."""
         totals: Dict[str, float] = {}
         times = []
         n_resample = int(getattr(self.cfgs.testset, "n_resample", 1) or 1)
@@ -145,19 +161,35 @@ class Evaluator:
             self._run_round(totals, times)
         if n_resample > 1:
             self.dataset.set_resample_seed(0)
-        return report(totals, times, self.with_occ)
+        return report(totals, times, self.with_occ) if self.rank == 0 else None
+
+    def _local_batches(self):
+        """This rank's slice of each global batch, None where it is empty."""
+        n, bs = len(self.dataset), self.loader.batch_size
+        lo = self.rank * self.loader.local_batch
+        batches = iter(self.loader)
+        try:
+            for i in range(len(self.loader)):
+                yield next(batches) if min(bs, n - i * bs) > lo else None
+        finally:
+            batches.close()
 
     def _run_round(self, totals: Dict[str, float], times) -> None:
         keys = MODEL_KEYS + ("flow_2d", "flow_3d") + (("occ_mask_3d",) if self.with_occ else ())
-        for i, batch in enumerate(self.loader):
-            tb = {k: torch.from_numpy(np.asarray(batch[k])).to(self.device) for k in keys}
-            self._sync()
-            start = time.perf_counter()
-            with torch.inference_mode():
-                outputs = self.model({k: tb[k] for k in MODEL_KEYS})
-                sums = _metric_sums(outputs, tb, self.with_occ)
-            sums = {k: float(v) for k, v in sums.items()}  # reads back: the device is done
-            times.append(time.perf_counter() - start)
+        sum_keys = SUM_KEYS + (NOC_SUM_KEYS if self.with_occ else ())
+        for i, batch in enumerate(self._local_batches()):
+            vec = torch.zeros(len(sum_keys), device=self.device)
+            if batch is not None:
+                tb = {k: torch.from_numpy(np.asarray(batch[k])).to(self.device) for k in keys}
+                self._sync()
+                start = time.perf_counter()
+                with torch.inference_mode():
+                    outputs = self.model({k: tb[k] for k in MODEL_KEYS})
+                    sums = _metric_sums(outputs, tb, self.with_occ)
+                vec = torch.stack([sums[k] for k in sum_keys])
+                self._sync()
+                times.append(time.perf_counter() - start)
+            sums = dict(zip(sum_keys, all_reduce_(vec, "metric sums").tolist()))
             if sums["3d/counts"] and sums["3d/EPE3d"] / sums["3d/counts"] > 10.0:
                 logging.warning("batch %d: mean EPE3D %.2f > 10: inputs may be degenerate",
                                 i, sums["3d/EPE3d"] / sums["3d/counts"])
@@ -165,7 +197,7 @@ class Evaluator:
                 totals[k] = totals.get(k, 0.0) + v
 
 
-def main(argv, with_occ: bool, default_config: str) -> Dict[str, float]:
+def main(argv, with_occ: bool, default_config: str) -> Dict[str, float] | None:
     """Command line of the ``eval_withocc`` / ``eval_noocc`` entry points."""
     import argparse
 
@@ -180,4 +212,7 @@ def main(argv, with_occ: bool, default_config: str) -> Dict[str, float]:
     cfgs = load_config(args.config)
     cfgs.ckpt.path = args.weights
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    return Evaluator(cfgs, with_occ=with_occ, device=args.device).run()
+    evaluator = Evaluator(cfgs, with_occ=with_occ, device=args.device)
+    if evaluator.rank:  # the other ranks stay silent
+        logging.getLogger().setLevel(logging.ERROR)
+    return evaluator.run()

@@ -1,7 +1,7 @@
-"""Dataset factories (the port's copy of ``rpeflow_tpu/train/factory.py``).
+"""Dataset and model factories (the port's copy of ``rpeflow_tpu/train/factory.py``).
 
-The JAX package's ``model_factory`` and its KNN-backend switch have no
-counterpart: the port builds ``RPEFlow`` directly and its KNN is exact.
+The JAX package's KNN-backend switch has no counterpart: the port's KNN is
+exact.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from ..data import (
     FlyingThings3DEvent,
     KubricData,
 )
+from ..model import DEFAULT_N_SAMPLES, RPEFlow
 
 
 def dataset_factory_single(cfgs):
@@ -41,3 +42,11 @@ def dataset_factory(cfgs):
             datasets.append(dataset_factory_single(cfgs.trainset3))
         return ConcatDataset(datasets)
     return dataset_factory_single(cfgs)
+
+
+def model_factory(cfgs, amp: bool = False) -> RPEFlow:
+    """The model of a ``model`` config block; ``amp`` runs its two 2-D
+    feature pyramids in bfloat16 (the training config's ``amp: true``)."""
+    if cfgs.name != "RPEFlow":
+        raise NotImplementedError(f"Unknown model name: {cfgs.name}")
+    return RPEFlow(cfgs, tuple(getattr(cfgs, "n_samples", DEFAULT_N_SAMPLES)), amp=amp)

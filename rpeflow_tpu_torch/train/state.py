@@ -6,6 +6,11 @@ statistics' update. The summary holds floats: ``loss``, ``loss_2d``,
 ``loss_3d``, ``mi_loss``, the flow metrics and ``grad_norm`` (the global
 norm of every parameter's gradient, the frozen ``temperature`` included, as
 ``optax.global_norm`` counts it).
+
+Under data parallelism (:mod:`..parallel.mesh`) each rank runs its slice of
+the global batch; the gradients are averaged over the ranks before the norm
+and the update, and the summaries are the means over the ranks, so that
+every rank takes the step of one process on the global batch.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
+from ..parallel.mesh import all_reduce_grads, mean_over_ranks
 from .optim import Optimizer
 
 
@@ -32,7 +38,8 @@ def train_step(model: nn.Module, optimizer: Optimizer, batch: Dict[str, torch.Te
     model.zero_grad(set_to_none=True)
     _, aux = model(batch, compute_mi=compute_mi, compute_loss=True, generator=generator)
     aux["loss"].backward()
-    summary = dict(aux["scalar_summary"])
+    all_reduce_grads(model)
+    summary = mean_over_ranks(aux["scalar_summary"], "train summary")
     summary["grad_norm"] = grad_norm(model)
     optimizer.step()
     return {k: float(v) for k, v in summary.items()}
@@ -41,11 +48,13 @@ def train_step(model: nn.Module, optimizer: Optimizer, batch: Dict[str, torch.Te
 @torch.no_grad()
 def eval_step(model: nn.Module, batch: Dict[str, torch.Tensor]):
     """Forward with the loss and metrics, no MI, in eval mode; returns
-    ``(outputs, summary of floats)``."""
+    ``(outputs, summary of floats)``, the summary's values means over the
+    ranks."""
     was_training = model.training
     model.eval()
     try:
         outputs, aux = model(batch, compute_mi=False, compute_loss=True)
     finally:
         model.train(was_training)
-    return outputs, {k: float(v) for k, v in aux["scalar_summary"].items()}
+    summary = mean_over_ranks(aux["scalar_summary"], "eval summary")
+    return outputs, {k: float(v) for k, v in summary.items()}

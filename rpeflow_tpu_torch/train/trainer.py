@@ -1,4 +1,4 @@
-"""Training driver on one device (counterpart of rpeflow_tpu/train/trainer.py).
+"""Training driver (counterpart of rpeflow_tpu/train/trainer.py).
 
 The epoch loop, per-step logging, validation with dataset-weighted means,
 the best checkpoint by validation ``outlier2d`` and epoch-granular resume
@@ -8,10 +8,19 @@ where ``tensorboardX`` imports, TensorBoard scalars ``train/<k>`` and
 ``val/flow_2d_pred`` of the first validation sample at every validation;
 ``log.profile_steps: [start, stop]`` records those steps of each epoch with
 ``torch.profiler`` into ``<log.dir>/profile``. Data comes from the port's
-own host layer (``rpeflow_tpu_torch.data``, ``.factory``), imported only
-when no batches are given: reading a dataset needs h5py. A caller without it
-passes the batch iterables itself (``train_batches``, ``val_batches``: each
+own host layer (``rpeflow_tpu_torch.data``, ``.factory``) when no batches
+are given; reading a dataset needs h5py. A caller without it passes the
+batch iterables itself (``train_batches``, ``val_batches``: each
 iteration yields dicts of numpy arrays or tensors).
+
+Under torchrun (``torchrun --nproc_per_node=N -m rpeflow_tpu_torch.train
+--config ...``) every rank joins one process group
+(:func:`..parallel.maybe_initialize_distributed`), runs on ``cuda:LOCAL_RANK``
+and loads its contiguous slice of each global batch of ``model.batch_size``;
+the steps then compute what one process computes on the global batch
+(:mod:`.state`). Rank 0 alone logs, writes summaries, profiles and saves
+checkpoints. With ``amp: true`` the two 2-D feature pyramids compute in
+bfloat16, and nothing else (:class:`..model.RPEFlow`).
 """
 
 from __future__ import annotations
@@ -24,9 +33,18 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from ..model import DEFAULT_N_SAMPLES, RPEFlow, is_better
+from ..data.loader import DataLoader, collate
+from ..model import is_better
+from ..parallel.mesh import (
+    barrier,
+    maybe_initialize_distributed,
+    process_count,
+    process_index,
+    replicate,
+)
 from ..utils.visualization import flow_to_image
 from .checkpoint import load_weights, restore_checkpoint, save_checkpoint
+from .factory import dataset_factory, model_factory
 from .optim import optimizer_factory
 from .precision import use_f32
 from .state import eval_step, train_step
@@ -61,37 +79,51 @@ def to_device(batch, device: torch.device) -> Dict[str, torch.Tensor]:
 class Trainer:
     """``cfgs`` is the training config (``model``, ``training``, ``log``,
     ``ckpt``, and ``trainset``/``trainset1..3``, ``valset`` unless the
-    batches are given)."""
+    batches are given; given batches are for one process)."""
 
     def __init__(self, cfgs, device="cuda", train_batches: Optional[Iterable] = None,
                  val_batches: Optional[Iterable] = None):
         use_f32()
+        maybe_initialize_distributed(device)
+        self.rank, self.world = process_index(), process_count()
+        self.is_main = self.rank == 0
         self.cfgs = cfgs
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.curr_epoch = 1
         self.best_metrics: Optional[Dict[str, float]] = None
         self.log_dir = cfgs.log.dir
         os.makedirs(self.log_dir, exist_ok=True)
-        init_logging(os.path.join(self.log_dir, "train.log"))
-        try:
-            from tensorboardX import SummaryWriter
+        self.summary_writer = None
+        if self.is_main:
+            init_logging(os.path.join(self.log_dir, "train.log"))
+            try:
+                from tensorboardX import SummaryWriter
 
-            self.summary_writer = SummaryWriter(self.log_dir)
-        except ImportError:
-            self.summary_writer = None
+                self.summary_writer = SummaryWriter(self.log_dir)
+            except ImportError:
+                pass
+        else:  # the other ranks stay silent
+            logging.getLogger().handlers = [logging.NullHandler()]
+        if cfgs.model.batch_size % self.world:
+            raise ValueError(f"batch size {cfgs.model.batch_size} does not divide over "
+                             f"{self.world} ranks")
+        logging.info("Data parallel over %d rank(s), %d samples each, on %s", self.world,
+                     cfgs.model.batch_size // self.world, self.device)
 
         if train_batches is None:
             train_batches, val_batches = self._loaders()
+        elif self.world > 1:
+            raise ValueError("with more than one rank the trainer reads its own loaders")
         self.train_batches = train_batches
         self.val_batches = val_batches if val_batches is not None else []
 
-        if cfgs.model.name != "RPEFlow":
-            raise NotImplementedError(f"Unknown model name: {cfgs.model.name}")
-        if getattr(cfgs, "amp", False):
-            raise NotImplementedError("amp (bf16 autocast) is not ported; the port trains in f32")
+        amp = bool(getattr(cfgs, "amp", False))
+        if amp:
+            logging.info("amp: the 2-D feature pyramids compute in bfloat16")
         torch.manual_seed(int(getattr(cfgs, "seed", 0)))
-        self.model = RPEFlow(cfgs.model, tuple(getattr(cfgs.model, "n_samples",
-                                                       DEFAULT_N_SAMPLES)))
+        self.model = model_factory(cfgs.model, amp=amp)
         logging.info("Trainable parameters: %d",
                      sum(p.numel() for p in self.model.parameters()))
         if cfgs.ckpt.path and not cfgs.ckpt.resume:
@@ -106,29 +138,31 @@ class Trainer:
             meta = restore_checkpoint(cfgs.ckpt.path, self.model, self.optimizer)
             self.curr_epoch = int(meta["last_epoch"]) + 1
             self.best_metrics = meta["best_metrics"]
+        replicate(self.model)
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(getattr(cfgs, "seed", 0)))
 
     def _loaders(self):
-        from ..data.loader import DataLoader
-        from .factory import dataset_factory
-
         cfgs = self.cfgs
         batch_size = cfgs.model.batch_size
+        shard = dict(shard_index=self.rank, num_shards=self.world)
         trainset_cfg = cfgs.trainset if "trainset" in cfgs else cfgs.trainset1
         logging.info("Loading training set from %s", trainset_cfg.root_dir)
         train_set = dataset_factory(cfgs if "trainset1" in cfgs else cfgs.trainset)
+        drop_last = bool(getattr(trainset_cfg, "drop_last", False))
+        if self.world > 1 and not drop_last and len(train_set) % batch_size:
+            raise ValueError(f"{len(train_set)} training samples end in a short batch, which "
+                             f"{self.world} ranks cannot share evenly: set drop_last: true")
         train_loader = DataLoader(
-            train_set, batch_size, shuffle=True,
-            drop_last=bool(getattr(trainset_cfg, "drop_last", False)),
+            train_set, batch_size, shuffle=True, drop_last=drop_last,
             num_workers=int(getattr(trainset_cfg, "n_workers", 2)),
-            use_process_pool=getattr(trainset_cfg, "use_process_pool", None))
+            use_process_pool=getattr(trainset_cfg, "use_process_pool", None), **shard)
         logging.info("Loading validation set from %s", cfgs.valset.root_dir)
         val_set = dataset_factory(cfgs.valset)
         val_loader = DataLoader(
             val_set, batch_size, shuffle=False,
             num_workers=int(getattr(cfgs.valset, "n_workers", 2)),
-            use_process_pool=getattr(cfgs.valset, "use_process_pool", None))
+            use_process_pool=getattr(cfgs.valset, "use_process_pool", None), **shard)
         return train_loader, (val_loader if len(val_set) else [])
 
     def run(self) -> None:
@@ -166,7 +200,7 @@ class Trainer:
         prof = None
         t_end = time.time()
         for i, batch in enumerate(self.train_batches):
-            if profile_steps and i == int(profile_steps[0]):
+            if profile_steps and self.is_main and i == int(profile_steps[0]):
                 prof = self._profiler()
                 prof.start()
             if prof is not None and i == int(profile_steps[1]):
@@ -188,15 +222,35 @@ class Trainer:
         if prof is not None:  # the window reaches past the epoch's last step
             prof.stop()
 
+    def _validation_batches(self):
+        """``(global batch size, the batch this rank evaluates)`` for each
+        validation batch. Over several ranks: the rank's slice of each full
+        global batch, and a short last batch whole, on every rank (no slice
+        is then empty, and the losses' global counts and the summary's mean
+        over ranks give its global values all the same)."""
+        if self.world == 1:
+            for batch in self.val_batches:
+                yield len(batch["images"]), batch
+            return
+        loader = self.val_batches
+        n, bs = len(loader.dataset), loader.batch_size
+        batches = iter(loader)
+        try:
+            for _ in range(n // bs):
+                yield bs, next(batches)
+        finally:
+            batches.close()
+        if n % bs:
+            yield n % bs, collate([loader.dataset[i] for i in range(n - n % bs, n)])
+
     def validate(self) -> Dict[str, float]:
         """Dataset-weighted means of the per-batch summaries."""
         logging.info("Epoch %d: validating...", self.curr_epoch)
         sums: Dict[str, float] = {}
         n_total = 0
         step = self.optimizer.step_count
-        for bi, batch in enumerate(self.val_batches):
+        for bi, (bs, batch) in enumerate(self._validation_batches()):
             tb = to_device(batch, self.device)
-            bs = tb["images"].shape[0]
             outputs, summary = eval_step(self.model, tb)
             if bi == 0 and self.summary_writer is not None:
                 # the predicted flow of the first validation sample
@@ -213,14 +267,19 @@ class Trainer:
         return avg
 
     def save_ckpt(self, name: str) -> str:
+        """Rank 0 writes ``<log.dir>/<name>.pt``; every rank waits for it."""
         path = os.path.join(self.log_dir, f"{name}.pt")
-        save_checkpoint(path, self.model, self.optimizer, self.curr_epoch, self.best_metrics)
+        if self.is_main:
+            save_checkpoint(path, self.model, self.optimizer, self.curr_epoch,
+                            self.best_metrics)
+        barrier()
         return path
 
 
 def main(argv=None) -> None:
     """Command line of ``python -m rpeflow_tpu_torch.train`` (the flags of
-    the JAX ``train.py``, plus ``--device``)."""
+    the JAX ``train.py``, plus ``--device``), and of ``torchrun
+    --nproc_per_node=N -m rpeflow_tpu_torch.train`` over N GPUs."""
     import argparse
 
     parser = argparse.ArgumentParser()
@@ -239,4 +298,7 @@ def main(argv=None) -> None:
     if args.weights is not None:
         cfgs.ckpt.path = args.weights
         cfgs.ckpt.resume = args.resume
-    Trainer(cfgs, device=args.device).run()
+    trainer = Trainer(cfgs, device=args.device)
+    trainer.run()
+    if trainer.summary_writer is not None:
+        trainer.summary_writer.close()

@@ -134,10 +134,10 @@ def floor(dev) -> None:
         "mdta_qkv": lambda: mdta.mdta_qkv(x, y, ln, dw, 1),
         "launch_qkv": lambda: mdta.launch_qkv(x, y, ln, dw, plan),
         "C call (two launches)": lambda: lib.rpeflow_mdta_qkv(*raw, plan.c_plan[1],
-                                                              _cuda.stream()),
+                                                              _cuda.stream(dev)),
         "C call refused (no launch)": lambda: lib.rpeflow_mdta_qkv(*raw, refused.c_plan[1],
-                                                                   _cuda.stream()),
-        "stream()": _cuda.stream,
+                                                                   _cuda.stream(dev)),
+        "stream()": lambda: _cuda.stream(dev),
         "torch.empty": lambda: torch.empty(plan.scratch_floats, device=dev),
         "require_cuda": lambda: _cuda.require_cuda("mdta_qkv", x, y, ln, dw),
         "plan lookup": lambda: mdta._cached_plan(1, 1, 1, 32, 1, 0),
@@ -199,7 +199,7 @@ def phases(dev) -> None:
         v, qk, sq = mdta.launch_qkv(x, y, ln, dw, plan)
         scratch = torch.empty(plan.scratch_floats, device=dev)
         args = (x.data_ptr(), y.data_ptr(), ln.data_ptr(), dw.data_ptr(), v.data_ptr(),
-                qk.data_ptr(), sq.data_ptr(), scratch.data_ptr(), plan.c_plan[1], _cuda.stream())
+                qk.data_ptr(), sq.data_ptr(), scratch.data_ptr(), plan.c_plan[1], _cuda.stream(dev))
         row = {name: time_ms(lambda: fn(*args)) for name, fn in fns.items()}
         print(f"mdta phases {(b, h, w, c)}: " + "  ".join(f"{k} {t:.4f}" for k, t in row.items()),
               flush=True)

@@ -49,6 +49,13 @@ def test_port_imports_its_own_host_layer(probe):
         assert mod in names, mod
 
 
+def test_port_imports_its_parallel_modules(probe):
+    names, _, _ = probe
+    for mod in ("rpeflow_tpu_torch.parallel", "rpeflow_tpu_torch.parallel.mesh",
+                "rpeflow_tpu_torch.parallel.dryrun"):
+        assert mod in names, mod
+
+
 def test_port_imports_no_module_of_the_jax_package(probe):
     _, _, jax_pkg = probe
     assert jax_pkg == [], f"importing the port pulled in: {jax_pkg}"

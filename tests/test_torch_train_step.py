@@ -43,7 +43,7 @@ from rpeflow_tpu.compat.torch_loader import to_torch_state_dict
 from rpeflow_tpu.model import RPEFlow as JaxRPEFlow
 from rpeflow_tpu.train.config import ConfigNode
 from rpeflow_tpu.train.optim import optimizer_factory as jax_optimizer_factory
-from rpeflow_tpu.train.state import create_train_state, make_train_step
+from rpeflow_tpu.train.state import create_train_state, jit_sharded, make_train_step
 from rpeflow_tpu_torch.compat import load_jax_variables
 from rpeflow_tpu_torch.model import RPEFlow
 from rpeflow_tpu_torch.train.optim import optimizer_factory
@@ -121,12 +121,13 @@ def _port_step_recording_signs(model, opt, batch):
     return out, signs
 
 
-def _jax_step(jax_model, tx, flips):
+def _jax_step(jax_model, tx, flips, mesh=None):
     """``make_train_step`` (MI off) with its (leaky) ReLUs taking the signs
     passed in, in call order; JAX's own disagreements are written to
     ``flips`` by call. Also returns the gradients (``make_train_step`` reports
     ``optax.global_norm(grads)``; it hands them back here, so one compiled
-    step yields both)."""
+    step yields both). With a ``mesh``, the step is ``jit_sharded`` over it
+    (the batch split over its devices, the rest replicated)."""
 
     def step(state, batch, key, signs):
         pos = iter(enumerate(signs))
@@ -149,7 +150,7 @@ def _jax_step(jax_model, tx, flips):
         assert next(pos, None) is None, "JAX ran fewer activations than the port"
         return new_state, ref
 
-    return jax.jit(step)
+    return jit_sharded(step, mesh, n_args=4)
 
 
 @pytest.fixture(scope="module")
