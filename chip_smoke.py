@@ -41,12 +41,22 @@ Phases, each of which raises on failure (exit code != 0):
  10. amp (bfloat16 in the two 2-D feature pyramids only): the pyramids and
      the forward at phase 4's shape against the CPU's amp model, forward
      hooks on every module, and phase 8's training with amp: ms/step and
-     peak memory.
+     peak memory;
+ 11. the tools (scripts/torch_*.py): (a) the gather tool at B = 4, N = 8192,
+     K = 16, C = 128 (every variant held exactly to the plain version, then
+     timed), both gathers exactly equal to their plain versions at edge
+     shapes; (b) the zero store against its plain version, and the repro
+     graph FINITE with the store's output discarded and added; (c) the
+     native event voxelizers against the numpy ones at DSEC scale (480x640,
+     15 bins, 500k events; atol 1e-6), with both times; (d) the profile of
+     the flagship forward (categories, busy share); (e) two steps of the
+     train-step tool.
 The second-to-last line is a JSON object of per-kernel results (phase 3's
 times, errors, bounds and library time summed over the shapes; the launches
 of one eval forward, phase 5, or, for the correlation's backward, which the
 eval forward does not run, of one train step, phase 8; and the launches of
-one train step), the last
+one train step; for the tools' kernels, phase 11's times at the tool's
+shape and the launches of one call of the tool named in ``path``), the last
 ``{"ok": true, "device": {...}}``. Weights and inputs are random, from seeds.
 """
 
@@ -54,23 +64,26 @@ import contextlib
 import copy
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
-from types import SimpleNamespace as NS
 
 import numpy as np
 import torch
 
+from rpeflow_tpu_torch.flagship import (  # noqa: F401 (read by the probes under scripts/)
+    FLAGSHIP,
+    N_SAMPLES,
+    TRAIN,
+    make_batch,
+    model_cfg,
+    training_cfg,
+)
+from rpeflow_tpu_torch.utils import timing
+
 SEED = 0
-FLAGSHIP = dict(b=4, h=576, w=960, n=8192, event_ch=20)
-N_SAMPLES = (4096, 2048, 1024, 512, 256)
 REDUCED = dict(b=1, h=128, w=192, n=2048, event_ch=20)
 REDUCED_SAMPLES = (1024, 512, 256, 128, 64)
-# FT3D training frames (540x960, resized to 576x960 inside); batch 4 is the
-# per-GPU batch of the upstream recipe (16 over 4 GPUs)
-TRAIN = dict(b=4, h=540, w=960, n=8192, event_ch=20)
 # per decode level l = 1..5 at the flagship shape (576x960 -> 144x240 at l = 1)
 LEVELS = [(144 >> i, 240 >> i, [32, 64, 96, 128, 192][i], 4096 >> i) for i in range(5)]
 SOURCES = {
@@ -83,74 +96,26 @@ SOURCES = {
     "gdfn": ("rpeflow_tpu_torch/csrc/gdfn.cu", "rpeflow_tpu/ops/pallas/gdfn.py:135"),
     "dwconv": ("rpeflow_tpu_torch/csrc/dwconv.cu", "rpeflow_tpu/ops/pallas/dwconv.py:90"),
 }
+# the kernels of the tools (phase 11): source, the Pallas kernel replaced,
+# the tool whose call launches them
+TOOL_SOURCES = {
+    "gather_rows": ("rpeflow_tpu_torch/csrc/gather.cu",
+                    "scripts/bench_gather.py:83 (pallas_rows; pallas_rowloop :111)",
+                    "scripts/torch_bench_gather.py"),
+    "gather_lanes": ("rpeflow_tpu_torch/csrc/gather.cu", "scripts/bench_gather.py:145",
+                     "scripts/torch_bench_gather.py"),
+    "zero_store": ("rpeflow_tpu_torch/csrc/zero_store.cu", "triage/repro_xla_custom_call.py:44",
+                   "scripts/torch_repro_custom_call.py"),
+}
 # kernels each path must launch (the eval forward's point-map GDFN runs the
 # depthwise kernel too; only training runs the correlation's backward)
-EXPECTED = {"eval forward": set(SOURCES) - {"correlation2d_bwd"}, "train step": set(SOURCES)}
-
-
-def model_cfg():
-    """Model block of conf/test/things.yaml (the training losses of
-    conf/train/pretrain.yaml added; the eval forward ignores them)."""
-    losses = NS(level_weights=[8, 4, 2, 1, 0.5], order="l2")
-    return NS(
-        name="RPEFlow",
-        freeze_bn=False,
-        ids=NS(enabled=True, sensor_size_divisor=32),
-        pwc2d=NS(event_bins=10, event_polarity=True, max_displacement=4,
-                 norm=NS(feature_pyramid="batch_norm", flow_estimator=None,
-                         context_network=None)),
-        pwc3d=NS(k=16, norm=NS(feature_pyramid="batch_norm", correlation=None,
-                               flow_estimator=None)),
-        loss2d=losses,
-        loss3d=losses,
-    )
-
-
-def training_cfg():
-    """Training block of conf/train/pretrain.yaml."""
-    return NS(max_epochs=600, optimizer="adam", weight_decay=1e-6, bias_decay=0.0,
-              lr=NS(scheduler="MultiStepLR", init_value=4e-4, momentum=0.9, decay_rate=0.5,
-                    decay_milestones=[400, 500]))
-
-
-def make_batch(seed, b, h, w, n, event_ch, device, targets=False):
-    """Synthetic FT3D-like batch whose points project inside the image."""
-    g = torch.Generator().manual_seed(seed)
-    f, cx, cy = 1050.0, (w - 1) / 2, (h - 1) / 2
-    z = 2.0 + 33.0 * torch.rand(b, n, generator=g)
-    u = torch.rand(b, n, generator=g) * (w - 1)
-    v = torch.rand(b, n, generator=g) * (h - 1)
-    pc1 = torch.stack([(u - cx) * z / f, (v - cy) * z / f, z], -1)
-    flow3d = 0.1 * torch.randn(b, n, 3, generator=g)
-    batch = {
-        "images": torch.randint(0, 256, (b, h, w, 6), generator=g, dtype=torch.uint8),
-        "pcs": torch.cat([pc1, pc1 + flow3d], -1),
-        "event_voxel": torch.rand(b, h, w, event_ch, generator=g),
-        "intrinsics": torch.tensor([[f, cx, cy]]).repeat(b, 1),
-    }
-    if targets:
-        batch["flow_2d"] = torch.cat([4 * torch.randn(b, h, w, 2, generator=g),
-                                      torch.ones(b, h, w, 1)], -1)
-        batch["occ_mask_3d"] = (torch.rand(b, n, generator=g) > 0.8).float()
-        # 4th channel: the loss's validity mask (non-occluded points)
-        batch["flow_3d"] = torch.cat([flow3d, 1.0 - batch["occ_mask_3d"][..., None]], -1)
-    return {k: t.to(device) for k, t in batch.items()}
+EXPECTED = {"eval forward": set(SOURCES) - {"correlation2d_bwd"}, "train step": set(SOURCES),
+            "gather tool": {"gather_rows", "gather_lanes"}, "repro tool": {"zero_store"}}
 
 
 def time_ms(fn, runs=20, warmup=3):
     """Median ms of ``fn()`` over ``runs`` calls, CUDA events around each."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return timing.time_ms(fn, torch.device("cuda", torch.cuda.current_device()), runs, warmup)
 
 
 def errors(out, ref):
@@ -171,20 +136,10 @@ def max_rel(out, ref):
     return errors(out, ref)[1]
 
 
-# Published H100 SXM peaks at 700 W (NVIDIA H100 datasheet): device
-# memory bytes/s, f32 operations/s on the CUDA cores, dense TF32 on the
-# tensor cores. A kernel's bound is the least time for its function's work:
-# each input read once, each output written once, its operations at the
-# peak rate of the unit that runs them (max over the two units).
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-PEAK_TF32 = 495e12
-
-
 def bound(nbytes, f32_ops, tf32_ops=0.0):
     """(ms, "bytes" | "operations") of the least time for the work."""
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(f32_ops / PEAK_F32, tf32_ops / PEAK_TF32)
+    t_bytes = nbytes / timing.PEAK_BYTES
+    t_ops = max(f32_ops / timing.PEAK_F32, tf32_ops / timing.PEAK_TF32)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -220,6 +175,12 @@ def kernel_work(name, shape):
         b, h, w, c, kh = shape
         p = b * h * w
         return f * (4 * p * c + 2 * kh * 3 * c), 3 * 2.0 * kh * 3 * p * c, 0.0
+    if name in ("gather_rows", "gather_lanes"):  # (B, N, M, C, itemsize): table and int32
+        # indices read once, one table row (column) per index written
+        b, n, m, c, item = shape
+        return item * (b * n * c + b * m * c) + 4 * b * m, 0.0, 0.0
+    if name == "zero_store":  # [B, H, W, C] float32 zeros written; no byte of x is needed
+        return f * int(np.prod(shape)), 0.0, 0.0
     raise KeyError(name)
 
 
@@ -1165,6 +1126,149 @@ def phase_amp(dev):
           f"timed steps, MI on); peak device memory {peak:.2f} GiB", flush=True)
 
 
+# (B, N, M, C, table dtype, index dtype, indices) the gathers are checked at
+# beyond the tool's shape: C of one, three, eight, 81 and 256 floats (rows
+# copied 4 or 16 bytes at a time), bfloat16 rows (2 and 16 bytes), M = 1 and
+# 2047, N = 1, B = 1, int64 indices, every index repeated, only 0 and N - 1
+GATHER_EDGE_SHAPES = [(4, 8192, 2048, c, torch.float32, torch.int32, "random")
+                      for c in (1, 3, 8, 81, 256)]
+GATHER_EDGE_SHAPES += [
+    (4, 8192, 2048, 128, torch.bfloat16, torch.int32, "random"),
+    (2, 300, 2047, 3, torch.bfloat16, torch.int64, "random"),
+    (3, 500, 1, 128, torch.float32, torch.int32, "random"),
+    (2, 1, 2047, 81, torch.float32, torch.int64, "random"),
+    (1, 8192, 131072, 128, torch.float32, torch.int32, "repeated"),
+    (2, 777, 2047, 64, torch.float32, torch.int32, "ends"),
+]
+#: [B, H, W, C], tile_h the zero store is checked at beyond the repro's
+#: [2, 144, 240, 256], 8: W * C not a multiple of 4 (scalar stores), one
+#: tile of the whole map, one element
+ZERO_EDGE_SHAPES = [((1, 8, 3, 5), 8), ((3, 16, 7, 9), 4), ((2, 144, 240, 256), 144),
+                    ((1, 1, 1, 1), 1)]
+
+
+def gather_case(b, n, m, c, dtype, idx_dtype, kind, g):
+    """Both gathers against their plain versions, exactly; returns each
+    one's max |kernel - plain|."""
+    from rpeflow_tpu_torch.ops import gather
+
+    dev = g.device
+    table = torch.randn(b, n, c, generator=g, device=dev).to(dtype)
+    if kind == "repeated":
+        idx = torch.randint(0, n, (b, 1), generator=g, device=dev).expand(b, m)
+    elif kind == "ends":
+        idx = (torch.randint(0, 2, (b, m), generator=g, device=dev) * (n - 1))
+    else:
+        idx = torch.randint(0, n, (b, m), generator=g, device=dev)
+    idx = idx.to(idx_dtype).contiguous()
+    table_cf = table.transpose(1, 2).contiguous()
+    errs = {}
+    for name, got, want in (
+            ("gather_rows", gather.gather_rows(table, idx),
+             gather.gather_rows_plain(table, idx)),
+            ("gather_lanes", gather.gather_lanes(table_cf, idx),
+             gather.gather_lanes_plain(table_cf, idx))):
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{name} {(b, n, m, c, dtype, idx_dtype, kind)}: differs "
+                                 "from the plain version")
+        errs[name] = float((got.float() - want.float()).abs().max())
+    return errs
+
+
+def phase_tools(dev):
+    """11: the tools. (a) the gather tool (every variant held exactly to the
+    plain version, then timed) and both gathers at edge shapes; (b) the
+    zero store against its plain version, the repro graph FINITE with the
+    store's output discarded and added; (c) the native voxelizers against
+    the numpy ones at DSEC scale; (d) the profile of the flagship forward;
+    (e) two flagship train steps through the train-step tool. Returns the
+    kernels' records and their launches per tool call."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import torch_bench_gather
+    import torch_bench_loader
+    import torch_bench_train_step
+    import torch_profile_forward
+    import torch_repro_custom_call
+
+    from rpeflow_tpu_torch.ops import _cuda, gather, zero_store
+
+    records, launches = {}, {}
+
+    def record(name, shape, ms, plain_ms, library_ms, abs_err):
+        b_ms, by = bound(*kernel_work(name, shape))
+        records[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                         "max_abs_err": abs_err, "bound_ms": b_ms, "bound": {by: b_ms}}
+        print(f"  {name:14s} {str(shape):28s} kernel {ms:9.4f} ms  plain {plain_ms:9.4f} ms  "
+              f"library {library_ms:9.4f} ms  bound {b_ms:8.4f} ms ({by})  max |d| {abs_err}",
+              flush=True)
+
+    # (a) the gather tool, counts from 0 just before the call, read just after
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    res, _ = torch_bench_gather.run(list("abcde"), 4, 8192, 16, 128, dev)
+    torch.cuda.synchronize()
+    launches["gather tool"] = dict(_cuda.LAUNCHES)
+    check_launches("gather tool", launches["gather tool"])
+    table, table_cf, idx = torch_bench_gather.make_inputs(4, 8192, 16, 128, dev)
+    shape = (4, 8192, idx.shape[1], 128, 4)
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    edge_errs = [gather_case(*case, g) for case in GATHER_EDGE_SHAPES]
+    record("gather_rows", shape, res["c"][0],
+           time_ms(lambda: gather.gather_rows_plain(table, idx)), res["a"][0],
+           max([res["c"][2]] + [e["gather_rows"] for e in edge_errs]))
+    record("gather_lanes", shape, res["d"][0],
+           time_ms(lambda: gather.gather_lanes_plain(table_cf, idx)), res["b"][0],
+           max([res["d"][2]] + [e["gather_lanes"] for e in edge_errs]))
+    print(f"  gathers at {len(GATHER_EDGE_SHAPES)} edge shapes (C 1-256, bfloat16, M = 1 and "
+          "2047, N = 1, B = 1, int64 indices, repeated indices, indices 0 and N - 1): equal",
+          flush=True)
+
+    # (b) the zero store, then the repro graph through its tool
+    x = torch.randn(2, 144, 240, 256, generator=g, device=dev)
+    zero_err = 0.0
+    for shape, th in [((2, 144, 240, 256), 8)] + ZERO_EDGE_SHAPES:
+        xs = x if shape == (2, 144, 240, 256) else torch.randn(*shape, generator=g, device=dev)
+        got, want = zero_store.zero_store(xs, th), zero_store.zero_store_plain(xs, th)
+        if not torch.equal(got, want):
+            raise AssertionError(f"zero_store {shape} tile_h {th}: not all zeros")
+        zero_err = max(zero_err, float((got - want).abs().max()))
+    try:
+        zero_store.zero_store(x[:, :143].contiguous(), 8)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("zero_store took H = 143 with tile_h = 8")
+    record("zero_store", tuple(x.shape), time_ms(lambda: zero_store.zero_store(x, 8)),
+           time_ms(lambda: zero_store.zero_store_plain(x, 8)),
+           time_ms(lambda: torch.zeros(x.shape, device=dev)), zero_err)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    rcs = [torch_repro_custom_call.main(a) for a in ([], ["--no-discard"])]
+    torch.cuda.synchronize()
+    launches["repro tool"] = {k: v // 2 for k, v in _cuda.LAUNCHES.items()}
+    check_launches("repro tool", launches["repro tool"])
+    if rcs != [0, 0]:
+        raise AssertionError(f"the repro graph is not finite: exit codes {rcs}")
+
+    # (c) the native voxelizers at DSEC scale (host only)
+    vox = torch_bench_loader.voxelizers(500_000, repeats=5)
+
+    # (d) the profile of the flagship forward
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_profile_forward.tsv")
+    prof = torch_profile_forward.main(["--runs", "2", "--top", "15", "--out", out])
+    hand = {c for run in prof["categories"] for c in run if c.startswith("kernel ")}
+    want = {f"kernel {k}" for k in EXPECTED["eval forward"]}
+    shares = prof["busy_share"]
+    if not want <= hand or len(shares) != 2 or not all(share > 0 for share in shares):
+        raise AssertionError(f"profile: hand kernels {sorted(hand)}, busy {shares}")
+
+    # (e) the train-step tool, two timed steps
+    if torch_bench_train_step.main(["--iters", "2"]) != 0:
+        raise AssertionError("the train-step tool's summaries are not finite")
+    return records, launches, vox
+
+
 T0 = time.perf_counter()
 
 
@@ -1177,10 +1281,9 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
               file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi, flush=True)
     dev = torch.device("cuda:0")
+    smi = timing.card_line(dev)
+    print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
     print(f"[1] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
@@ -1215,6 +1318,9 @@ def main():
     phase_dp_flagship(dev, phase8)
     phase("[10] amp: bf16 in the two 2-D pyramids, card vs CPU at 128x192, flagship training")
     phase_amp(dev)
+    phase("[11] tools: gathers, zero store and the repro graph, native voxelizers, profile, "
+          "train-step tool")
+    tool_results, tool_launches, _ = phase_tools(dev)
 
     kernels = []
     for name, (src, rep) in SOURCES.items():
@@ -1223,6 +1329,15 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": path_launches[name], "launches_train_step": train_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": max(r["bound"], key=r["bound"].get),
+            "share": r["bound_ms"] / r["ms"], "library_ms": r["library_ms"]})
+    for name, (src, rep, tool) in TOOL_SOURCES.items():
+        r = tool_results[name]
+        path = "gather tool" if name.startswith("gather") else "repro tool"
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep, "path": tool,
+            "launches": tool_launches[path][name], "launches_train_step": train_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": max(r["bound"], key=r["bound"].get),
             "share": r["bound_ms"] / r["ms"], "library_ms": r["library_ms"]})

@@ -18,7 +18,9 @@ Note: raw DSEC events.h5 files are blosc-compressed and need the
 
 The port's copy of ``rpeflow_tpu/data/dsec.py``: ``yaml``, ``cv2`` and
 ``h5py`` are imported inside the functions that use them, and the
-trilinear voxelizer always takes its numpy path.
+trilinear voxelizer scatters in the native host library (:mod:`.native`,
+built with g++ at first use), as the JAX package's does when its library
+loads; the numpy version is :func:`events_to_voxel_trilinear_plain`.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from .augmentation import joint_augmentation
 from .dataset import Dataset
 from .flow_utils import flow_warp_numpy
 from .io import depth2pc, project_pc2image_np
+from . import native
 
 
 def flow_16bit_to_float(flow_16bit: np.ndarray):
@@ -124,8 +127,22 @@ def events_to_voxel_trilinear(xs, ys, ts, ps, num_bins, height, width) -> np.nda
     """Signed trilinear (x, y, t) voxelization (reference dsec.py:536-573).
 
     Values are 2p-1; coordinates are float (rectified) so events spread over
-    the 8 surrounding (x, y, t) cells. Returns [num_bins, H, W].
+    the 8 surrounding (x, y, t) cells. Returns [num_bins, H, W]. The scatter
+    runs in the native host library (:mod:`.native`), with the coordinates
+    and the normalised time in float32, as the JAX package's native path;
+    :func:`events_to_voxel_trilinear_plain` is the numpy version.
     """
+    vox = np.zeros((num_bins, height, width), np.float32)
+    if len(ts) == 0:
+        return vox
+    t_norm = (num_bins - 1) * (ts - ts[0]) / max(ts[-1] - ts[0], 1e-9)
+    native.event_scatter_trilinear(vox, xs, ys, t_norm, 2.0 * ps - 1.0)
+    return vox
+
+
+def events_to_voxel_trilinear_plain(xs, ys, ts, ps, num_bins, height,
+                                    width) -> np.ndarray:
+    """:func:`events_to_voxel_trilinear` with ``np.add.at`` (the plain version)."""
     vox = np.zeros(num_bins * height * width, np.float32)
     if len(ts) == 0:
         return vox.reshape(num_bins, height, width)

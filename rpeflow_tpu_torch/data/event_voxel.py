@@ -8,14 +8,19 @@ scatter accumulation; with ``event_polarity`` the positive (p>0) and negative
 Output is channels-LAST ``[H, W, B]`` / ``[H, W, 2B]`` (the reference emits
 channel-first and transposes later; we are channels-last end to end).
 
-The port's copy of ``rpeflow_tpu/data/event_voxel.py``. The JAX package
-can scatter through a native host library; this copy always takes the numpy
-path, which computes the same voxels (up to the order of float additions).
+The port's copy of ``rpeflow_tpu/data/event_voxel.py``. As in the JAX
+package, the scatter runs in the native host library
+(:mod:`.native`, ``csrc/host_ops.cpp``, built with g++ at first use); its
+numpy body stays as :func:`_accumulate_plain` (:func:`events_to_voxel_plain`
+scatters with it), which only tests and benches call. A failed build
+raises: there is no silent numpy fallback.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from . import native
 
 
 def load_events_h5(path: str) -> np.ndarray:
@@ -36,7 +41,16 @@ def load_events_h5(path: str) -> np.ndarray:
 
 
 def _accumulate(vox: np.ndarray, xs, ys, tis, weights, num_bins: int):
-    """Scatter-add triangle-weighted events into the [B, H, W] grid."""
+    """Scatter-add triangle-weighted events into the [B, H, W] grid, in the
+    native library; a pixel outside the grid raises ``IndexError`` (as
+    ``np.add.at`` does past the edge; it wraps negative ones)."""
+    if vox.shape[0] != num_bins:
+        raise ValueError(f"grid of {vox.shape[0]} bins for num_bins = {num_bins}")
+    native.event_scatter_add(vox, xs, ys, tis, weights)
+
+
+def _accumulate_plain(vox: np.ndarray, xs, ys, tis, weights, num_bins: int):
+    """:func:`_accumulate` with ``np.add.at`` (the plain version)."""
     valid = tis < num_bins
     np.add.at(vox, (tis[valid], ys[valid], xs[valid]), weights[valid])
 
@@ -49,6 +63,16 @@ def events_to_voxel(
     event_polarity: bool = False,
 ) -> np.ndarray:
     """Voxelize an event stream. Returns ``[H, W, B]`` or ``[H, W, 2B]``."""
+    return _events_to_voxel(events, num_bins, height, width, event_polarity, _accumulate)
+
+
+def events_to_voxel_plain(events: np.ndarray, num_bins: int, height: int, width: int,
+                          event_polarity: bool = False) -> np.ndarray:
+    """:func:`events_to_voxel` scattering with :func:`_accumulate_plain`."""
+    return _events_to_voxel(events, num_bins, height, width, event_polarity, _accumulate_plain)
+
+
+def _events_to_voxel(events, num_bins, height, width, event_polarity, accumulate):
     if len(events) == 0:
         c = 2 * num_bins if event_polarity else num_bins
         return np.zeros([height, width, c], np.float32)
@@ -66,8 +90,8 @@ def events_to_voxel(
 
     def grid_for(weights):
         vox = np.zeros([num_bins, height, width], np.float32)
-        _accumulate(vox, xs, ys, ti, weights * (1.0 - frac), num_bins)
-        _accumulate(vox, xs, ys, ti + 1, weights * frac, num_bins)
+        accumulate(vox, xs, ys, ti, weights * (1.0 - frac), num_bins)
+        accumulate(vox, xs, ys, ti + 1, weights * frac, num_bins)
         return vox
 
     if event_polarity:

@@ -31,17 +31,28 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("fps.cu", "correlation.cu", "mdta.cu", "gdfn.cu", "dwconv.cu")
+#: source -> {``__global__`` function: the :data:`LAUNCHES` key of the wrapper
+#: that launches it}, the one list of the hand-written kernels
+SOURCES = {
+    "fps.cu": {"fps_kernel": "fps"},
+    "correlation.cu": {"corr_fwd": "correlation2d", "corr_bwd": "correlation2d_bwd"},
+    "mdta.cu": {"mdta_kernel": "mdta_qkv", "sum_partials": "mdta_qkv"},
+    "gdfn.cu": {"gdfn_kernel": "gdfn"},
+    "dwconv.cu": {"dw_fwd_kernel": "dwconv", "dw_bwd_kernel": "dwconv",
+                  "sum_partials_kernel": "dwconv"},
+    "gather.cu": {"gather_rows_kernel": "gather_rows", "gather_lanes_kernel": "gather_lanes"},
+    "zero_store.cu": {"zero_tile_kernel": "zero_store"},
+}
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel wrapper; see :func:`reset_launch_counts`.
-LAUNCHES = {"fps": 0, "correlation2d": 0, "correlation2d_bwd": 0, "mdta_qkv": 0, "gdfn": 0,
-            "dwconv": 0}
+LAUNCHES = {key: 0 for kernels in SOURCES.values() for key in kernels.values()}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # name: (argtypes, restype)
     "rpeflow_fps": ((_P, _I, _I, _I, _P, _P), _I),
@@ -53,6 +64,9 @@ _SIGNATURES = {
     "rpeflow_gdfn_tile_rows": ((_I, _I, _I, _I), _I),
     "rpeflow_dwconv": ((_P, _P, _P, _P, _P), _I),
     "rpeflow_dwconv_bwd": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _P), _I),
+    "rpeflow_gather_rows": ((_P, _P, _P, _L, _L, _L, _L, _I, _P), _I),
+    "rpeflow_gather_lanes": ((_P, _P, _P, _L, _L, _L, _L, _I, _I, _P), _I),
+    "rpeflow_zero_store": ((_P, _L, _L, _L, _I, _P), _I),
 }
 
 _lib = None

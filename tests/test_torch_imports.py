@@ -91,7 +91,8 @@ def test_source_names_no_jax_package_import(path):
 
 
 def test_cpu_tensors_take_the_plain_path(rng):
-    from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, fps, gdfn, mdta
+    from rpeflow_tpu_torch.ops import (_cuda, correlation, dwconv, fps, gather, gdfn, mdta,
+                                       zero_store)
 
     _cuda.reset_launch_counts()
     x = torch.from_numpy(rng.randn(1, 6, 7, 8).astype(np.float32))
@@ -102,6 +103,11 @@ def test_cpu_tensors_take_the_plain_path(rng):
     gdfn.gdfn(x, torch.ones(8, 10), torch.ones(3, 3, 10), torch.ones(5, 8))
     dwconv.dwconv(x, torch.ones(3, 3, 8))
     dwconv.dwconv_bwd(x, x, torch.ones(3, 3, 8))
+    idx = torch.zeros(6, 5, dtype=torch.int32)
+    gather.gather_rows(x[0], idx)
+    gather.gather_lanes(x[0], idx)
+    zero_store.zero_store(x, 3)
     assert _cuda.LAUNCHES == {"fps": 0, "correlation2d": 0, "correlation2d_bwd": 0,
-                              "mdta_qkv": 0, "gdfn": 0, "dwconv": 0}
+                              "mdta_qkv": 0, "gdfn": 0, "dwconv": 0, "gather_rows": 0,
+                              "gather_lanes": 0, "zero_store": 0}
     assert _cuda._lib is None, "a CPU call must not build or load the kernel library"

@@ -12,7 +12,8 @@ backward calls bitwise equal; MDTA v atol 1e-5,
 qk/sq within 1e-4 of their largest entry, two calls bitwise equal; GDFN rtol 1e-4, atol 1e-5;
 depthwise conv and its input gradient atol 1e-5, its taps gradient (a sum
 over every pixel) within 1e-4 of its largest entry, two backward calls
-bitwise equal. The autograd functions (kernels inside) hold
+bitwise equal; the gathers and the zero store exactly equal (they copy or
+store values). The autograd functions (kernels inside) hold
 their gradients to ``torch.autograd`` through the plain compositions within
 1e-4 of each gradient's largest entry.
 """
@@ -20,8 +21,15 @@ their gradients to ``torch.autograd`` through the plain compositions within
 import pytest
 import torch
 
-from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, fps, gdfn, mdta
-from chip_smoke import CORR_EDGE_PLAN, CORR_EDGE_SHAPES, DWCONV_EDGE_SHAPES
+from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, fps, gdfn, mdta, zero_store
+from chip_smoke import (
+    CORR_EDGE_PLAN,
+    CORR_EDGE_SHAPES,
+    DWCONV_EDGE_SHAPES,
+    GATHER_EDGE_SHAPES,
+    ZERO_EDGE_SHAPES,
+    gather_case,
+)
 from torch_port_utils import MDTA_EDGE_SHAPES, MDTA_FLAGSHIP_SHAPES
 from torch_port_utils import cuda_device  # noqa: F401
 
@@ -333,3 +341,23 @@ def test_eval_forward_card_matches_cpu(cuda_device):
     for key in ("flow_2d", "flow_3d"):
         assert torch.isfinite(out[key]).all()
         assert_flow_close(out[key].cpu().numpy(), ref[key].numpy(), key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(4, 8192, 131072, 128, torch.float32, torch.int32, "random")]
+                         + GATHER_EDGE_SHAPES, ids=str)
+def test_gathers_equal_plain(cuda_device, case):
+    before = dict(_cuda.LAUNCHES)
+    gather_case(*case, torch.Generator(device=cuda_device).manual_seed(0))
+    assert _cuda.LAUNCHES["gather_rows"] == before["gather_rows"] + 1
+    assert _cuda.LAUNCHES["gather_lanes"] == before["gather_lanes"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tile_h", [((2, 144, 240, 256), 8)] + ZERO_EDGE_SHAPES, ids=str)
+def test_zero_store_equals_plain(cuda_device, shape, tile_h):
+    x = torch.randn(*shape, device=cuda_device)
+    got = zero_store.zero_store(x, tile_h)
+    assert torch.equal(got, zero_store.zero_store_plain(x, tile_h))
+    with pytest.raises(ValueError):
+        zero_store.zero_store(x, shape[1] + 1)

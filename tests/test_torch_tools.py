@@ -1,0 +1,234 @@
+"""The port's tools (``scripts/torch_*.py``) on the CPU at a tiny size.
+
+Each tool runs in process with ``--device cpu`` (64x64 frames, 2 decode
+levels, 256 points where it builds the model), and its results are checked:
+
+* ``torch_bench_gather``: every variant equal to its plain version, then
+  timed; the sweep;
+* ``torch_repro_custom_call``: FINITE (exit 0) with the zero store's output
+  discarded and added, and its graph equal (atol 1e-5) to the JAX script's
+  (``conv``, ``dilated``, ``pallas_zero`` in interpret mode) on the same
+  seeded input and weights;
+* ``torch_bench_train_step``, ``torch_bench_breakdown``: every item timed,
+  the step's summaries finite;
+* ``torch_profile_forward``: category totals, module attribution (with the
+  activation checkpoints' recomputed scopes and the backward's autograd
+  nodes in a train step), the full table written to ``--out``;
+* ``torch_bench_loader``: the voxelizers (native within 1e-6 of numpy) and
+  items/s of a synthetic preprocessed DSEC sequence;
+* ``torch_verify_checkpoint_parity``: on a synthetic FT3D split with a
+  ``seeded_init_`` checkpoint in the upstream schema it exits 1 (random
+  weights fail the README row), its metric table is the port's
+  ``Evaluator.run()`` on the same config, and its rows and tolerances are
+  the JAX script's.
+"""
+
+import importlib.util
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+from jax.experimental.pallas import tpu as pltpu
+
+from rpeflow_tpu_torch.model import RPEFlow, seeded_init_
+from rpeflow_tpu_torch.train.config import ConfigNode
+from synthetic_data import write_ft3d
+from torch_port_utils import small_cfg_dict
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = ["--device", "cpu", "--hw", "64", "64", "--points", "256", "--levels", "2"]
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tiny models run thousands of small operators,
+    which many threads only slow down where other test workers share the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _load(rel, name=None):
+    spec = importlib.util.spec_from_file_location(
+        name or os.path.basename(rel)[:-3], os.path.join(REPO, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bench_gather(capsys):
+    tool = _load("scripts/torch_bench_gather.py")
+    assert tool.main(["--device", "cpu", "--b", "2", "--n", "64", "--k", "2", "--c", "8"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("equal to the plain version") == 4
+    assert out.count("GB/s effective") == 4 and "the same kernel as C" in out
+    assert tool.main(["sweep", "--device", "cpu", "--b", "1", "--n", "32", "--k", "2"]) == 0
+    assert capsys.readouterr().out.count("ns/row") == 2 * len(tool.SWEEP)
+
+
+@pytest.mark.parametrize("discard", [True, False])
+def test_repro_custom_call_matches_the_jax_graph(discard, capsys):
+    tool = _load("scripts/torch_repro_custom_call.py")
+    jax_repro = _load("triage/repro_xla_custom_call.py", "jax_repro_xla_custom_call")
+    argv = ["--device", "cpu", "--batch", "1", "--hw", "16", "24", "--channels", "4"]
+    assert tool.main(argv + ([] if discard else ["--no-discard"])) == 0
+    assert "FINITE" in capsys.readouterr().out
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(1, 16, 24, 4).astype(np.float32)
+    ws = [(rng.randn(3, 3, 4, 4) * (1.5 / np.sqrt(36))).astype(np.float32) for _ in range(8)]
+    with pltpu.force_tpu_interpret_mode():
+        y = jax_repro.conv(jax_repro.conv(jnp.asarray(x), ws[0]), ws[1])
+        k = jax_repro.pallas_zero(y, 8)
+        y = y + k if not discard else jax.lax.optimization_barrier((k, y))[1]
+        for i, d in enumerate(tool.DILATIONS):
+            y = jax_repro.dilated(y, ws[2 + i], d)
+    with torch.no_grad():
+        got = tool.graph(torch.from_numpy(x), [torch.from_numpy(w) for w in ws], [], 8, discard)
+    np.testing.assert_allclose(got.numpy(), np.asarray(y), rtol=1e-4, atol=1e-5)
+
+
+def test_bench_train_step(capsys):
+    tool = _load("scripts/torch_bench_train_step.py")
+    assert tool.main(TINY + ["--batch", "1", "--iters", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "ms/step" in out and "finite=True" in out and "not measured" in out
+
+
+def test_bench_breakdown():
+    tool = _load("scripts/torch_bench_breakdown.py")
+    res = tool.main(TINY + ["--batch", "1", "--iters", "1"])
+    assert len(res) == 7 and all(np.isfinite(v) and v > 0 for v in res.values())
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_profile_forward(train, tmp_path, capsys):
+    tool = _load("scripts/torch_profile_forward.py")
+    out = tmp_path / "profile.tsv"
+    res = tool.main(TINY + ["--batch", "1", "--runs", "1", "--top", "5", "--out", str(out)]
+                    + (["--train"] if train else []))
+    printed = capsys.readouterr().out
+    assert len(res["categories"]) == 1 and res["busy_share"] == [] and res["kernels"] > 0
+    cats = res["categories"][0]
+    assert cats["cuDNN conv"] > 0 and cats["GEMM"] > 0 and cats["elementwise"] > 0
+    assert "device busy: not measured (CPU run)" in printed
+    rows = [line.split("\t") for line in out.read_text().splitlines()[2:]]
+    modules = {r[3] for r in rows}
+    assert any(m.startswith("pwc_fusion_core.") for m in modules)
+    if train:  # the checkpointed blocks' recompute and the backward's nodes
+        assert any(m.endswith("[recompute]") for m in modules)
+        assert any(m.startswith("backward: ") for m in modules)
+    else:
+        assert not any(m.endswith("[recompute]") or m.startswith("backward: ") for m in modules)
+
+
+def test_profile_forward_categories():
+    tool = _load("scripts/torch_profile_forward.py")
+    assert tool.category("void (anonymous namespace)::fps_kernel<32>(float const*)") == \
+        "kernel fps"
+    assert tool.category("(anonymous namespace)::sum_partials_kernel(float const*)") == \
+        "kernel dwconv"
+    assert tool.category("(anonymous namespace)::sum_partials(float const*)") == "kernel mdta_qkv"
+    assert tool.category("Memcpy HtoD (Pageable -> Device)") == "memcpy/memset"
+    assert tool.category("sm90_xmma_fprop_implicit_gemm_f32f32") == "cuDNN conv"
+    assert tool.category("ampere_sgemm_128x64_nn") == "GEMM"
+    assert tool.category("ampere_sgemm_128x64_nn", "aten::mm") == "GEMM"
+    fft_gemm = "sm80_xmma_gemm_cf32cf32_f32f32_cf32_tn_n_tilesize32x32x8"
+    assert tool.category(fft_gemm, "aten::cudnn_convolution") == "cuDNN conv"
+    assert tool.category("void internal::region_transform_ABC_val<int, 32>",
+                         "aten::convolution_backward") == "cuDNN conv"
+    assert tool.category("void indexing_backward_kernel<float>", "aten::index_put_") == "other"
+    assert tool.category("aten::mul") == "elementwise"
+    assert tool.category("void at::native::vectorized_elementwise_kernel<4>") == "elementwise"
+    assert tool.category("void at::native::sbtopk::gatherTopK<float>") == "topk/sort"
+    assert tool.category("void at::native::reduce_kernel<512, 1>") == "reduce"
+
+
+def test_kernel_registry_names_every_global():
+    """``_cuda.SOURCES`` lists each ``__global__`` function of each source
+    (the profile tool finds the hand kernels by these names) and nothing
+    else, and every launch key it names is counted."""
+    import re
+
+    from rpeflow_tpu_torch.ops import _cuda
+
+    tool = _load("scripts/torch_profile_forward.py")
+    names = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+    assert sorted(p.name for p in _cuda.CSRC.glob("*.cu")) == sorted(_cuda.SOURCES)
+    for src, kernels in _cuda.SOURCES.items():
+        assert sorted(names.findall((_cuda.CSRC / src).read_text())) == sorted(kernels), src
+        for fn, key in kernels.items():
+            assert key in _cuda.LAUNCHES
+            assert tool.category(f"void (anonymous namespace)::{fn}<1>(float*)") == f"kernel {key}"
+
+
+def test_bench_loader(capsys):
+    tool = _load("scripts/torch_bench_loader.py")
+    assert tool.main(["--mode", "both", "--items", "2", "--events", "2000", "--hw", "48", "64",
+                      "--points", "256", "--repeats", "1", "--workers", "1", "2"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("native") == 2 and out.count("items/s") == 3
+
+
+@pytest.fixture(scope="module")
+def parity_setup(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("parity")
+    root = tmp / "data"
+    write_ft3d(str(root), "val", 2, h=64, w=64, n_pts=300, bins=2, seed=3)
+    losses = {"level_weights": [8, 4, 2, 1, 0.5], "order": "l2"}
+    model = dict(small_cfg_dict(), batch_size=2, n_samples=[128, 64], loss2d=losses,
+                 loss3d=losses)
+    cfg = {"testset": {"name": "flyingthings3devent", "root_dir": str(root), "split": "val",
+                       "n_workers": 1, "n_points": 256, "max_depth": 35.0, "event_bins": 2,
+                       "event_polarity": True, "augmentation": {"enabled": False},
+                       "n_resample": 1},
+           "model": model, "ckpt": {"path": None, "strict": True}}
+    cfg_path = tmp / "test.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    weights = tmp / "synthetic.pt"
+    state = seeded_init_(RPEFlow(ConfigNode(model), (128, 64)), seed=0).state_dict()
+    torch.save({"last_epoch": 0, "last_step": 0, "state_dict": state, "best_metrics": None},
+               str(weights))
+    return cfg, str(cfg_path), str(weights)
+
+
+def test_verify_checkpoint_parity(parity_setup, capsys):
+    from rpeflow_tpu_torch.train.evaluator import Evaluator
+
+    cfg, cfg_path, weights = parity_setup
+    tool = _load("scripts/torch_verify_checkpoint_parity.py")
+    rc = tool.main(["--weights", weights, "--config", cfg_path, "--n-resample", "0",
+                    "--device", "cpu"])
+    out = capsys.readouterr().out
+    report = json.loads(out[out.index("{"):])
+    assert rc == 1 and report["pass"] is False  # random weights fail the README row
+    assert report["device"] == "cpu"
+
+    ref = Evaluator(ConfigNode(dict(cfg, ckpt={"path": weights, "strict": True})),
+                    with_occ=True, device="cpu").run()
+    expected = tool.EXPECTED["things"]["metrics"]
+    assert set(report["metrics"]) == set(expected)
+    for name, row in report["metrics"].items():
+        assert row["expected"] == expected[name]
+        assert row["got"] == round(ref[name], 4), name
+        assert row["ok"] is (abs(ref[name] - expected[name]) <= row["tol"])
+
+
+def test_verify_checkpoint_parity_keeps_the_jax_rows():
+    tool = _load("scripts/torch_verify_checkpoint_parity.py")
+    jax_tool = _load("scripts/verify_checkpoint_parity.py", "jax_verify_checkpoint_parity")
+    assert tool.EXPECTED == jax_tool.EXPECTED
+    assert (tool.EPE_2D_REL_TOL, tool.EPE_3D_REL_TOL, tool.PCT_ABS_TOL) == \
+        (jax_tool.EPE_2D_REL_TOL, jax_tool.EPE_3D_REL_TOL, jax_tool.PCT_ABS_TOL)
+    flags = {a.dest: a.default for a in tool.parser()._actions}
+    assert flags.pop("device") == "cuda"
+    for dest in ("benchmark", "config", "data_root", "max_batches", "n_resample", "batch_size",
+                 "rel_tol_epe2d", "rel_tol_epe3d", "abs_tol_pct", "weights"):
+        assert dest in flags, dest
