@@ -46,17 +46,20 @@ Phases, each of which raises on failure (exit code != 0):
      K = 16, C = 128 (every variant held exactly to the plain version, then
      timed), both gathers exactly equal to their plain versions at edge
      shapes; (b) the zero store against its plain version, and the repro
-     graph FINITE with the store's output discarded and added; (c) the
-     native event voxelizers against the numpy ones at DSEC scale (480x640,
-     15 bins, 500k events; atol 1e-6), with both times; (d) the profile of
-     the flagship forward (categories, busy share); (e) two steps of the
-     train-step tool.
+     graph FINITE with the store's output discarded and added; the three
+     tool kernels' and their library calls' device ms (torch.profiler) and
+     host us a call from scripts/torch_tools_probe.py in a fresh process;
+     (c) the native event voxelizers against the numpy ones at DSEC scale
+     (480x640, 15 bins, 500k events; atol 1e-6), with both times; (d) the
+     profile of the flagship forward (categories, busy share); (e) two steps
+     of the train-step tool.
 The second-to-last line is a JSON object of per-kernel results (phase 3's
 times, errors, bounds and library time summed over the shapes; the launches
 of one eval forward, phase 5, or, for the correlation's backward, which the
 eval forward does not run, of one train step, phase 8; and the launches of
 one train step; for the tools' kernels, phase 11's times at the tool's
-shape and the launches of one call of the tool named in ``path``), the last
+shape, with the device ms and host us of the wrapper and the library call,
+and the launches of one call of the tool named in ``path``), the last
 ``{"ok": true, "device": {...}}``. Weights and inputs are random, from seeds.
 """
 
@@ -64,6 +67,7 @@ import contextlib
 import copy
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -1127,24 +1131,45 @@ def phase_amp(dev):
 
 
 # (B, N, M, C, table dtype, index dtype, indices) the gathers are checked at
-# beyond the tool's shape: C of one, three, eight, 81 and 256 floats (rows
-# copied 4 or 16 bytes at a time), bfloat16 rows (2 and 16 bytes), M = 1 and
-# 2047, N = 1, B = 1, int64 indices, every index repeated, only 0 and N - 1
+# beyond the tool's shape: C of one, three, five, eight, 81 and 256 floats
+# (rows copied 4 or 16 bytes at a time; C = 5 leaves the lane gather's last
+# channel group short), bfloat16 rows (2 and 16 bytes), M = 1 and 2047 (the
+# lane gather's walk one m a thread), N = 1, B = 1, int64 indices, every
+# index repeated, only 0 and N - 1, N = 65,536 (f32 rows too long for shared
+# memory: the lane gather's L2 branch; bf16 rows of 128 KB, one a block),
+# and tables one element past a 16-byte boundary (the staged lane gather's
+# plain loads, not the TMA's)
 GATHER_EDGE_SHAPES = [(4, 8192, 2048, c, torch.float32, torch.int32, "random")
-                      for c in (1, 3, 8, 81, 256)]
+                      for c in (1, 3, 5, 8, 81, 256)]
 GATHER_EDGE_SHAPES += [
     (4, 8192, 2048, 128, torch.bfloat16, torch.int32, "random"),
+    (2, 8192, 2048, 128, torch.bfloat16, torch.int64, "random"),
+    (3, 8192, 2047, 5, torch.bfloat16, torch.int64, "random"),
     (2, 300, 2047, 3, torch.bfloat16, torch.int64, "random"),
+    (4, 8192, 2047, 128, torch.float32, torch.int32, "random"),
     (3, 500, 1, 128, torch.float32, torch.int32, "random"),
     (2, 1, 2047, 81, torch.float32, torch.int64, "random"),
     (1, 8192, 131072, 128, torch.float32, torch.int32, "repeated"),
     (2, 777, 2047, 64, torch.float32, torch.int32, "ends"),
+    (2, 65536, 2048, 8, torch.float32, torch.int32, "random"),
+    (2, 65536, 2047, 5, torch.bfloat16, torch.int64, "random"),
+    (4, 8192, 2048, 128, torch.float32, torch.int32, "misaligned"),
+    (2, 8192, 2048, 5, torch.bfloat16, torch.int64, "misaligned"),
 ]
 #: [B, H, W, C], tile_h the zero store is checked at beyond the repro's
-#: [2, 144, 240, 256], 8: W * C not a multiple of 4 (scalar stores), one
-#: tile of the whole map, one element
+#: [2, 144, 240, 256], 8: W * C not a multiple of 4 (4-byte stores at the
+#: span's tail), one tile of the whole map, one element, and a span of
+#: 798,795 floats, no multiple of a block's 16 KB and 3 floats past its
+#: last 16-byte word
 ZERO_EDGE_SHAPES = [((1, 8, 3, 5), 8), ((3, 16, 7, 9), 4), ((2, 144, 240, 256), 144),
-                    ((1, 1, 1, 1), 1)]
+                    ((1, 1, 1, 1), 1), ((3, 45, 97, 61), 9)]
+
+
+def offset_copy(t):
+    """A contiguous copy of ``t`` that starts one element past the start of
+    its storage (so not 16-byte aligned)."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return view.copy_(t)
 
 
 def gather_case(b, n, m, c, dtype, idx_dtype, kind, g):
@@ -1162,6 +1187,8 @@ def gather_case(b, n, m, c, dtype, idx_dtype, kind, g):
         idx = torch.randint(0, n, (b, m), generator=g, device=dev)
     idx = idx.to(idx_dtype).contiguous()
     table_cf = table.transpose(1, 2).contiguous()
+    if kind == "misaligned":
+        table, table_cf = offset_copy(table), offset_copy(table_cf)
     errs = {}
     for name, got, want in (
             ("gather_rows", gather.gather_rows(table, idx),
@@ -1183,7 +1210,8 @@ def phase_tools(dev):
     the numpy ones at DSEC scale; (d) the profile of the flagship forward;
     (e) two flagship train steps through the train-step tool. Returns the
     kernels' records and their launches per tool call."""
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    sys.path.insert(0, scripts)
     import torch_bench_gather
     import torch_bench_loader
     import torch_bench_train_step
@@ -1194,18 +1222,34 @@ def phase_tools(dev):
 
     records, launches = {}, {}
 
-    def record(name, shape, ms, plain_ms, library_ms, abs_err):
+    # the profiler's device ms and the host's us a call of each tool kernel
+    # and its library call, from the tools probe in a fresh process (in this
+    # one, after phases 3-10, the profiler hands back few kernel records)
+    torch.cuda.empty_cache()
+    probe = subprocess.run([sys.executable, os.path.join(scripts, "torch_tools_probe.py"), "--json"],
+                           capture_output=True, text=True, timeout=300)
+    if probe.returncode != 0:
+        raise AssertionError(f"torch_tools_probe.py failed:\n{probe.stdout}\n{probe.stderr}")
+    print(probe.stdout, end="", flush=True)
+    split = json.loads(probe.stdout.strip().splitlines()[-1])
+
+    def record(name, shape, ms, plain_ms, library_ms, abs_err, library):
+        kern, lib = split[name], split[library]
         b_ms, by = bound(*kernel_work(name, shape))
         records[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                         "max_abs_err": abs_err, "bound_ms": b_ms, "bound": {by: b_ms}}
-        print(f"  {name:14s} {str(shape):28s} kernel {ms:9.4f} ms  plain {plain_ms:9.4f} ms  "
-              f"library {library_ms:9.4f} ms  bound {b_ms:8.4f} ms ({by})  max |d| {abs_err}",
+                         "max_abs_err": abs_err, "bound_ms": b_ms, "bound": {by: b_ms},
+                         "device_ms": kern["device_ms"], "host_us": kern["host_us"],
+                         "library_device_ms": lib["device_ms"], "library_host_us": lib["host_us"]}
+        print(f"  {name:14s} {str(shape):28s} kernel {ms:9.4f} ms (device "
+              f"{kern['device_ms']:.4f} ms, host {kern['host_us']:.1f} us)  plain {plain_ms:9.4f} "
+              f"ms  library {library_ms:9.4f} ms (device {lib['device_ms']:.4f} ms, host "
+              f"{lib['host_us']:.1f} us)  bound {b_ms:8.4f} ms ({by})  max |d| {abs_err}",
               flush=True)
 
     # (a) the gather tool, counts from 0 just before the call, read just after
     torch.cuda.synchronize()
     _cuda.reset_launch_counts()
-    res, _ = torch_bench_gather.run(list("abcde"), 4, 8192, 16, 128, dev)
+    res, _ = torch_bench_gather.run(list("abcde"), 4, 8192, 16, 128, dev, device_time=False)
     torch.cuda.synchronize()
     launches["gather tool"] = dict(_cuda.LAUNCHES)
     check_launches("gather tool", launches["gather tool"])
@@ -1215,13 +1259,13 @@ def phase_tools(dev):
     edge_errs = [gather_case(*case, g) for case in GATHER_EDGE_SHAPES]
     record("gather_rows", shape, res["c"][0],
            time_ms(lambda: gather.gather_rows_plain(table, idx)), res["a"][0],
-           max([res["c"][2]] + [e["gather_rows"] for e in edge_errs]))
+           max([res["c"][2]] + [e["gather_rows"] for e in edge_errs]), "torch.gather rows")
     record("gather_lanes", shape, res["d"][0],
            time_ms(lambda: gather.gather_lanes_plain(table_cf, idx)), res["b"][0],
-           max([res["d"][2]] + [e["gather_lanes"] for e in edge_errs]))
+           max([res["d"][2]] + [e["gather_lanes"] for e in edge_errs]), "torch.gather lanes")
     print(f"  gathers at {len(GATHER_EDGE_SHAPES)} edge shapes (C 1-256, bfloat16, M = 1 and "
-          "2047, N = 1, B = 1, int64 indices, repeated indices, indices 0 and N - 1): equal",
-          flush=True)
+          "2047, N = 1 and 65,536, B = 1, int64 indices, repeated indices, indices 0 and N - 1, "
+          "misaligned tables): equal", flush=True)
 
     # (b) the zero store, then the repro graph through its tool
     x = torch.randn(2, 144, 240, 256, generator=g, device=dev)
@@ -1238,9 +1282,10 @@ def phase_tools(dev):
         pass
     else:
         raise AssertionError("zero_store took H = 143 with tile_h = 8")
+
     record("zero_store", tuple(x.shape), time_ms(lambda: zero_store.zero_store(x, 8)),
            time_ms(lambda: zero_store.zero_store_plain(x, 8)),
-           time_ms(lambda: torch.zeros(x.shape, device=dev)), zero_err)
+           time_ms(lambda: torch.zeros(x.shape, device=dev)), zero_err, "torch.zeros")
     torch.cuda.synchronize()
     _cuda.reset_launch_counts()
     rcs = [torch_repro_custom_call.main(a) for a in ([], ["--no-discard"])]
@@ -1340,7 +1385,9 @@ def main():
             "launches": tool_launches[path][name], "launches_train_step": train_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": max(r["bound"], key=r["bound"].get),
-            "share": r["bound_ms"] / r["ms"], "library_ms": r["library_ms"]})
+            "share": r["bound_ms"] / r["ms"], "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"], "host_us": r["host_us"],
+            "library_device_ms": r["library_device_ms"], "library_host_us": r["library_host_us"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

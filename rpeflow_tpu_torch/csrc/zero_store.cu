@@ -10,44 +10,56 @@
 // input (the zeros do not depend on it) and writes B * H * W * C floats:
 // 70.8 MB at the default [2, 144, 240, 256], 21.1 us at 3.35 TB/s.
 //
-// Design: the grid is the Pallas grid, one block per (b, tile of th rows),
-// 36 blocks at the default shape, so each block has 1024 threads to keep
-// enough stores in flight. A tile of an NHWC map is th * W * C contiguous
-// floats, which the block writes as 16-byte stores when the tile's length
-// and base allow it (every W * C that is a multiple of 4), else as 4-byte
-// stores. The caller guarantees H % th == 0 (the Pallas grid never writes
-// rows past (H // th) * th; the wrapper refuses such a shape).
+// Design: the zeros do not depend on the tiling, so the grid is not the
+// Pallas grid (which gave 36 blocks of the 132 SMs at the default shape,
+// about 96 SMs storing nothing) but the whole B * H * W * C span cut in
+// 16 KB pieces, one a block of 256 threads, each thread storing four
+// 16-byte words 4 KB apart (a warp: four 512-byte runs): 4,320 blocks at the
+// default shape, eight resident on each SM at a time. The last n % 4 floats
+// are 4-byte stores of block 0. A base that is not 16-byte aligned takes
+// 4-byte stores throughout, 4 KB a block. (Measured against this, in
+// PERF.md: a persistent grid of 1 to 64 blocks an SM walking the span, and
+// one issuing TMA bulk stores from a zeroed shared-memory tile, were 5-30%
+// slower.) The caller guarantees H % th == 0: the Pallas grid never writes
+// rows past (H // th) * th, so the wrapper refuses such a shape.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 256;
+constexpr int kPerThread = 4;  // stores a thread
+constexpr long long kPerBlock = (long long)kThreads * kPerThread;
 
+// vec4: `out` is 16-byte aligned; the span's n / 4 words are stored as
+// float4, the rest as floats. Otherwise all n as floats.
 __global__ void __launch_bounds__(kThreads)
-zero_tile_kernel(float* __restrict__ out, long long tile_elems, int vec4) {
-  const long long tile = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-  float* base = out + tile * tile_elems;
+zero_store_kernel(float* __restrict__ out, long long n, int vec4) {
+  const long long base = blockIdx.x * kPerBlock + threadIdx.x;
   if (vec4) {
-    float4* v = reinterpret_cast<float4*>(base);
-    const long long n4 = tile_elems / 4;
-    for (long long k = threadIdx.x; k < n4; k += kThreads) v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    const long long words = n / 4;
+    float4* v = reinterpret_cast<float4*>(out);
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j)
+      if (base + j * kThreads < words) v[base + j * kThreads] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (blockIdx.x == 0 && threadIdx.x < n - words * 4) out[words * 4 + threadIdx.x] = 0.f;
   } else {
-    for (long long k = threadIdx.x; k < tile_elems; k += kThreads) base[k] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j)
+      if (base + j * kThreads < n) out[base + j * kThreads] = 0.f;
   }
 }
 
 }  // namespace
 
-// out [B, H, W, C] float32; row_elems = W * C; th divides H
-extern "C" int rpeflow_zero_store(float* out, long long b, long long h, long long row_elems,
-                                  int th, void* stream) {
-  if (th <= 0 || h % th != 0 || b > 65535) return (int)cudaErrorInvalidValue;
-  if (b == 0 || h == 0 || row_elems == 0) return 0;
-  const long long tile_elems = th * row_elems;
-  const int vec4 = tile_elems % 4 == 0 && ((uintptr_t)out) % 16 == 0;
-  const dim3 grid((unsigned)(h / th), (unsigned)b);
-  zero_tile_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(out, tile_elems, vec4);
+// out: n float32
+extern "C" int rpeflow_zero_store(float* out, long long n, void* stream) {
+  if (n == 0) return 0;
+  const int vec4 = ((uintptr_t)out) % 16 == 0;
+  const long long units = vec4 ? n / 4 : n;
+  const long long blocks = units > kPerBlock ? (units + kPerBlock - 1) / kPerBlock : 1;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  zero_store_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(out, n, vec4);
   return (int)cudaGetLastError();
 }

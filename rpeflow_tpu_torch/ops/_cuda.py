@@ -17,7 +17,6 @@ that its main path went through the kernels.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import hashlib
@@ -40,8 +39,9 @@ SOURCES = {
     "gdfn.cu": {"gdfn_kernel": "gdfn"},
     "dwconv.cu": {"dw_fwd_kernel": "dwconv", "dw_bwd_kernel": "dwconv",
                   "sum_partials_kernel": "dwconv"},
-    "gather.cu": {"gather_rows_kernel": "gather_rows", "gather_lanes_kernel": "gather_lanes"},
-    "zero_store.cu": {"zero_tile_kernel": "zero_store"},
+    "gather.cu": {"gather_rows_kernel": "gather_rows", "gather_lanes_staged_kernel": "gather_lanes",
+                  "gather_lanes_l2_kernel": "gather_lanes"},
+    "zero_store.cu": {"zero_store_kernel": "zero_store"},
 }
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -65,8 +65,8 @@ _SIGNATURES = {
     "rpeflow_dwconv": ((_P, _P, _P, _P, _P), _I),
     "rpeflow_dwconv_bwd": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _P), _I),
     "rpeflow_gather_rows": ((_P, _P, _P, _L, _L, _L, _L, _I, _P), _I),
-    "rpeflow_gather_lanes": ((_P, _P, _P, _L, _L, _L, _L, _I, _I, _P), _I),
-    "rpeflow_zero_store": ((_P, _L, _L, _L, _I, _P), _I),
+    "rpeflow_gather_lanes": ((_P, _P, _P, _L, _L, _L, _L, _I, _I, _I, _I, _I, _P), _I),
+    "rpeflow_zero_store": ((_P, _L, _P), _I),
 }
 
 _lib = None
@@ -162,14 +162,29 @@ def stream(device: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-@contextlib.contextmanager
-def on_device(device: torch.device):
+class on_device:  # noqa: N801 (used as a function: ``with on_device(dev) as stream``)
     """Make ``device`` the current device for a launch, and yield the address
     of its current stream. The CUDA runtime launches on the calling thread's
     current device, which need not be the one the operands are on (a rank on
-    ``cuda:1`` that never set its device would launch on device 0)."""
-    with torch.cuda.device(device):
-        yield stream(device)
+    ``cuda:1`` that never set its device would launch on device 0). Where it
+    already is the calling thread's current device, the device guard is
+    skipped; a class, not a generator, since it runs at every launch."""
+
+    __slots__ = ("device", "guard")
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.guard = (None if device.index == torch.cuda.current_device()
+                      else torch.cuda.device(device))
+
+    def __enter__(self) -> int:
+        if self.guard is not None:
+            self.guard.__enter__()
+        return stream(self.device)
+
+    def __exit__(self, *exc) -> None:
+        if self.guard is not None:
+            self.guard.__exit__(*exc)
 
 
 def check(err: int, name: str) -> None:

@@ -2,13 +2,17 @@
 
 A tool runs on the card unless it is asked for the CPU (``--device cpu``);
 asked for a card that is not there, it fails and does not fall back. On the
-card a time is the median of CUDA-event times around single calls; on the
-CPU it is the median of the host clock's, and it is printed as a host time,
-never as a device metric.
+card a time is the median of CUDA-event times around single calls (the
+wrapper's host time included when the card is idle at the start event);
+:func:`device_ms` is the kernels' own time from ``torch.profiler`` and
+:func:`host_us` the host's time per call. On the CPU a time is the median of
+the host clock's, and it is printed as a host time, never as a device
+metric.
 """
 
 from __future__ import annotations
 
+import re
 import subprocess
 import time
 
@@ -23,6 +27,8 @@ import torch
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
+#: the CUDA runtime calls that put work on the device
+_LAUNCH = re.compile(r"^cuda(LaunchKernel|Memset|Memcpy)")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -71,4 +77,50 @@ def time_ms(fn, dev: torch.device, runs: int = 20, warmup: int = 3) -> float:
             t0 = time.perf_counter()
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def device_ms(fn, runs: int = 10) -> float:
+    """Device ms per call of ``fn`` on the card, from ``torch.profiler``
+    (CPU and CUDA activity) over ``runs`` calls after one call outside the
+    window: the mean duration of the device activities it recorded
+    (kernels, copies, memsets) times the launches the host issued per call.
+    CUPTI may hand back fewer activity records than launches in a process
+    that has already profiled much, so a fresh process reads it best. Host
+    time and the gaps between kernels are not in it. Raises if no device
+    activity was recorded."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    ns = [e.duration_ns() for e in events
+          if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+    if not ns:
+        raise RuntimeError("device_ms: the profiler recorded no device activity")
+    launches = sum(e.device_type() == DeviceType.CPU and _LAUNCH.search(e.name()) is not None
+                   for e in events)
+    return sum(ns) / len(ns) * max(launches, len(ns)) / runs / 1e6
+
+
+def host_us(fn, dev: torch.device, calls: int = 1000, rounds: int = 10) -> float:
+    """Host microseconds per call of ``fn``: ``calls`` calls in ``rounds``
+    rounds, each round read on the host clock when its last call returns
+    (before the sync that ends it, so the device's time is not in it unless
+    the launch queue fills); the median round."""
+    fn()
+    sync(dev)
+    per_round = max(1, calls // rounds)
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(per_round):
+            fn()
+        times.append((time.perf_counter() - t0) / per_round * 1e6)
+        sync(dev)
     return float(np.median(times))

@@ -10,18 +10,25 @@ A table ``[B, N, C]`` (or ``[B, C, N]`` channels-first) is gathered at
 
   A) the library's row gather, ``torch.gather`` on ``[B, N, C]``;
   B) the library's lane gather, ``torch.gather`` on ``[B, C, N]``;
-  C) ``ops.gather.gather_rows`` (csrc/gather.cu; replaces ``pallas_rows``);
-  D) ``ops.gather.gather_lanes`` (csrc/gather.cu; replaces ``pallas_lanes``);
+  C) ``ops.gather.gather_rows`` (csrc/gather.cu; replaces ``pallas_rows``):
+     whole rows, 16-byte words, a warp a row;
+  D) ``ops.gather.gather_lanes`` (csrc/gather.cu; replaces ``pallas_lanes``):
+     at this shape its staged branch, each block's 4 table rows (128 KB)
+     copied into shared memory by the TMA engine, then written out four m a
+     thread (``ops.gather.lanes_plan``; rows over 227 KB go through the L2);
   E) ``pallas_rowloop`` computes the same function as ``pallas_rows``, so the
      port has one kernel for both: E is C, printed once more under its
      letter, neither checked nor timed a second time.
 
 Each variant is first held to its plain version (``gather_rows_plain`` /
 ``gather_lanes_plain``) for exact equality; a variant that differs or fails
-raises. Times are the median of 20 calls between CUDA events; effective
-GB/s and the bound count the bytes the function must move: the output
-written once, the table and the indices read once (287.3 MB at the default
-shape, 85.8 us at 3.35 TB/s). ``sweep`` times A and C over C in
+raises. Times are the median of 20 calls between CUDA events (the wrapper's
+host time included), and on the card, beside it, the device time of the
+kernels alone (``torch.profiler``, 10 calls); effective GB/s and the bound
+count the bytes the
+function must move: the output written once, the table and the indices read
+once (287.3 MB at the default shape, 85.8 us at 3.35 TB/s; both gathers are
+bound by those bytes). ``sweep`` times A and C over C in
 {8, 32, 64, 128, 256} float32 and {128, 256} bfloat16 (GB/s of the output
 rows, ns a row).
 """
@@ -45,6 +52,7 @@ from rpeflow_tpu_torch.ops.gather import (  # noqa: E402
 from rpeflow_tpu_torch.utils.timing import (  # noqa: E402
     PEAK_BYTES,
     card_line,
+    device_ms,
     resolve_device,
     time_ms,
 )
@@ -81,9 +89,10 @@ def variants(table, table_cf, idx):
     }
 
 
-def run(which, b, n, k, c, dev, runs=20):
+def run(which, b, n, k, c, dev, runs=20, device_time=True):
     """Check and time the chosen variants; returns {letter: (ms, GB/s, max
-    |variant - plain|)} (E, asked for, is C's entry)."""
+    |variant - plain|, device ms)} (E, asked for, is C's entry; device ms
+    is None on the CPU or without ``device_time``)."""
     table, table_cf, idx = make_inputs(b, n, k, c, dev)
     nbytes = (b * n * k * c + b * n * c) * table.element_size() + idx.numel() * idx.element_size()
     out_bytes = b * n * k * c * table.element_size()
@@ -107,8 +116,10 @@ def run(which, b, n, k, c, dev, runs=20):
         before = dict(_cuda.LAUNCHES)
         ms = time_ms(fn, dev, runs=runs)
         launched = {key: v - before[key] for key, v in _cuda.LAUNCHES.items() if v != before[key]}
-        results[w] = (ms, nbytes / (ms * 1e-3) / 1e9, errs[w])
-        print(f"{name}: {ms:.4f} ms, {results[w][1]:.1f} GB/s effective, "
+        dev_ms = device_ms(fn) if dev.type == "cuda" and device_time else None
+        results[w] = (ms, nbytes / (ms * 1e-3) / 1e9, errs[w], dev_ms)
+        on_card = "" if dev_ms is None else f", device {dev_ms:.4f} ms"
+        print(f"{name}: {ms:.4f} ms{on_card}, {results[w][1]:.1f} GB/s effective, "
               f"{ms / bound_ms:.2f}x the bound; launches {launched or 'none (library)'}",
               flush=True)
     if "e" in which:

@@ -80,6 +80,33 @@ def test_gather_lanes_plain_equals_pallas(small, seed):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("c,dtype,idx_dtype", [
+    (5, torch.float32, np.int32), (5, torch.float32, np.int64), (5, torch.bfloat16, np.int32),
+    (5, torch.bfloat16, np.int64), (8, torch.bfloat16, np.int64)], ids=str)
+def test_gather_lanes_plain_equals_pallas_groups_and_types(bench_gather, monkeypatch, c, dtype,
+                                                           idx_dtype):
+    """``pallas_lanes`` at a channel count that is no multiple of the
+    kernel's channel group (C = 5), with a bfloat16 table and with int64
+    indices (JAX, 64-bit types off, takes them as int32; the port as they
+    are), against the plain version and the CPU wrapper."""
+    for name, value in dict(SMALL, C=c).items():
+        monkeypatch.setattr(bench_gather, name, value)
+    table, idx = _inputs(4, c=c)
+    table_cf = np.ascontiguousarray(table.transpose(0, 2, 1))
+    idx = idx.astype(idx_dtype)
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(bench_gather.pallas_lanes(jnp.asarray(table_cf, dtype=jdtype),
+                                                    jnp.asarray(idx)))
+    t = torch.from_numpy(table_cf).to(dtype)
+    i = torch.from_numpy(idx)
+    _cuda.reset_launch_counts()
+    for got in (gather.gather_lanes_plain(t, i), gather.gather_lanes(t, i)):
+        assert got.dtype == dtype and got.shape == (SMALL["B"], c, SMALL["M"])
+        np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32))
+    assert _cuda.LAUNCHES["gather_lanes"] == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
 def test_cpu_wrappers_take_the_plain_gathers(dtype, idx_dtype):
@@ -101,7 +128,8 @@ def test_cpu_wrappers_take_the_plain_gathers(dtype, idx_dtype):
 
 
 @pytest.mark.parametrize("shape,tile_h", [((2, 16, 8, 4), 8), ((1, 8, 3, 5), 8),
-                                          ((2, 24, 6, 16), 4)])
+                                          ((2, 24, 6, 16), 4), ((2, 16, 8, 4), 16),
+                                          ((3, 24, 6, 16), 8), ((3, 8, 5, 3), 8)])
 def test_zero_store_plain_equals_pallas(repro, shape, tile_h):
     x = np.random.RandomState(0).randn(*shape).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():

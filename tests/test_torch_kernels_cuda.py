@@ -13,15 +13,16 @@ qk/sq within 1e-4 of their largest entry, two calls bitwise equal; GDFN rtol 1e-
 depthwise conv and its input gradient atol 1e-5, its taps gradient (a sum
 over every pixel) within 1e-4 of its largest entry, two backward calls
 bitwise equal; the gathers and the zero store exactly equal (they copy or
-store values). The autograd functions (kernels inside) hold
-their gradients to ``torch.autograd`` through the plain compositions within
-1e-4 of each gradient's largest entry.
+store values), the lane gather under other plans too.
+The autograd functions (kernels inside) hold their gradients to
+``torch.autograd`` through the plain compositions within 1e-4 of each
+gradient's largest entry.
 """
 
 import pytest
 import torch
 
-from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, fps, gdfn, mdta, zero_store
+from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, fps, gather, gdfn, mdta, zero_store
 from chip_smoke import (
     CORR_EDGE_PLAN,
     CORR_EDGE_SHAPES,
@@ -351,6 +352,24 @@ def test_gathers_equal_plain(cuda_device, case):
     gather_case(*case, torch.Generator(device=cuda_device).manual_seed(0))
     assert _cuda.LAUNCHES["gather_rows"] == before["gather_rows"] + 1
     assert _cuda.LAUNCHES["gather_lanes"] == before["gather_lanes"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [(1, 256, 1), (2, 1024, 3), (7, 512, 2), (4, 32, 40), (0, 256, 1)],
+                         ids=str)
+@pytest.mark.parametrize("dtype,idx_dtype,m", [(torch.float32, torch.int32, 8192),
+                                               (torch.bfloat16, torch.int64, 8191)], ids=str)
+def test_gather_lanes_plans_equal_plain(cuda_device, plan, dtype, idx_dtype, m):
+    """The lane gather under plans other than its own (channel groups of 1,
+    2 and 7 rows, 32 to 1024 threads, M split; g = 0 the L2 branch): one
+    launch, equal to the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    table = torch.randn(2, 13, 8192, generator=g, device=cuda_device).to(dtype)
+    idx = torch.randint(0, 8192, (2, m), generator=g, device=cuda_device).to(idx_dtype)
+    before = _cuda.LAUNCHES["gather_lanes"]
+    got = gather.launch_lanes(table, idx, gather.LanesPlan(*plan))
+    assert _cuda.LAUNCHES["gather_lanes"] == before + 1
+    assert torch.equal(got, gather.gather_lanes_plain(table, idx))
 
 
 @pytest.mark.cuda

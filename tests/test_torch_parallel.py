@@ -402,11 +402,12 @@ def test_a_group_that_cannot_be_joined_raises(monkeypatch):
 
 
 def test_wrappers_launch_on_their_inputs_device(monkeypatch):
-    """With the kernel library, the device guard and the stream lookup
-    stubbed, each wrapper called on tensors of another device than the
-    current one (``meta`` here) makes that device current and launches on
-    that device's stream."""
-    from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, fps, gdfn, mdta
+    """With the kernel library, the device guard, the current device and the
+    stream lookup stubbed, each wrapper called on tensors of another device
+    than the current one (``meta`` here) makes that device current and
+    launches on that device's stream."""
+    from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, fps, gather, gdfn, mdta
+    from rpeflow_tpu_torch.ops import zero_store
 
     guarded, streams, launched = [], [], []
 
@@ -419,6 +420,7 @@ def test_wrappers_launch_on_their_inputs_device(monkeypatch):
         return nullcontext()
 
     monkeypatch.setattr(torch.cuda, "device", device_guard)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(_cuda, "stream", lambda device: streams.append(device) or 0)
     monkeypatch.setattr(_cuda, "lib", Lib)
     monkeypatch.setattr(_cuda, "require_cuda", lambda *args, **kwargs: None)
@@ -440,9 +442,50 @@ def test_wrappers_launch_on_their_inputs_device(monkeypatch):
         "rpeflow_dwconv": lambda: dwconv.dwconv_fwd(x, torch.empty(3, 3, 32, device=dev)),
         "rpeflow_dwconv_bwd": lambda: dwconv.dwconv_bwd(x, x, torch.empty(3, 3, 32,
                                                                           device=dev)),
+        "rpeflow_gather_rows": lambda: gather.gather_rows(
+            torch.empty(2, 64, 8, device=dev), torch.empty(2, 32, dtype=torch.int32, device=dev)),
+        "rpeflow_gather_lanes": lambda: gather.gather_lanes(
+            torch.empty(2, 8, 64, device=dev), torch.empty(2, 32, dtype=torch.int64, device=dev)),
+        "rpeflow_zero_store": lambda: zero_store.zero_store(x, 4),
     }
     for name, call in calls.items():
         guarded.clear(), streams.clear(), launched.clear()
         call()
         assert launched == [name] and guarded == [dev] and streams == [dev], (
             name, launched, guarded, streams)
+
+
+def test_launch_guard_follows_the_calling_threads_current_device(monkeypatch):
+    """``_cuda.on_device`` enters the device guard only where the operands'
+    device is not the calling thread's current one: a thread whose current
+    device is 0 launching on ``cuda:1`` makes ``cuda:1`` current, the main
+    thread, whose current device is 1, launches there without the guard;
+    both on ``cuda:1``'s stream. (The current device is per thread in the
+    CUDA runtime; stubbed here per thread.)"""
+    import threading
+
+    from rpeflow_tpu_torch.ops import _cuda
+
+    current = threading.local()
+    guarded, streams = [], []
+
+    def device_guard(device):
+        guarded.append((threading.current_thread().name, device))
+        return nullcontext()
+
+    monkeypatch.setattr(torch.cuda, "device", device_guard)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current.index)
+    monkeypatch.setattr(_cuda, "stream", lambda device: streams.append(device) or 7)
+    dev = torch.device("cuda", 1)
+
+    def launch(index):
+        current.index = index
+        with _cuda.on_device(dev) as stream:
+            assert stream == 7
+
+    launch(1)
+    assert guarded == [] and streams == [dev]
+    worker = threading.Thread(target=launch, args=(0,), name="launcher")
+    worker.start()
+    worker.join()
+    assert guarded == [("launcher", dev)] and streams == [dev, dev]
