@@ -52,7 +52,14 @@ Phases, each of which raises on failure (exit code != 0):
      (c) the native event voxelizers against the numpy ones at DSEC scale
      (480x640, 15 bins, 500k events; atol 1e-6), with both times; (d) the
      profile of the flagship forward (categories, busy share); (e) two steps
-     of the train-step tool.
+     of the train-step tool; each in a process of its own, (f) the KNN-1
+     bench at B = 4, Q = 34560, N = 4096 (the four formulations' indices
+     equal to the port's ``k_nearest_neighbor``'s on inputs whose squared
+     distances are exact, their ms and peak memory), (g) the convex-upsample
+     bench at [4, 144, 240], S = 4 (variants B and C within 1e-4 of the
+     port's ``convex_upsample``, their ms), (h) the eval-resample study at
+     its defaults (batch 2, 288x480, 8192 points, three draws; every metric
+     finite, each of the five model kernels launched).
 The second-to-last line is a JSON object of per-kernel results (phase 3's
 times, errors, bounds and library time summed over the shapes; the launches
 of one eval forward, phase 5, or, for the correlation's backward, which the
@@ -1208,7 +1215,9 @@ def phase_tools(dev):
     zero store against its plain version, the repro graph FINITE with the
     store's output discarded and added; (c) the native voxelizers against
     the numpy ones at DSEC scale; (d) the profile of the flagship forward;
-    (e) two flagship train steps through the train-step tool. Returns the
+    (e) two flagship train steps through the train-step tool; (f) the KNN-1
+    bench, (g) the convex bench and (h) the resample study, each in a fresh
+    process, checked from its last line. Returns the
     kernels' records and their launches per tool call."""
     scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
     sys.path.insert(0, scripts)
@@ -1311,7 +1320,37 @@ def phase_tools(dev):
     # (e) the train-step tool, two timed steps
     if torch_bench_train_step.main(["--iters", "2"]) != 0:
         raise AssertionError("the train-step tool's summaries are not finite")
+
+    # (f)-(h) the KNN-1 and convex benches and the resample study, each in a
+    # process of its own (this one's cached blocks handed back first)
+    torch.cuda.empty_cache()
+    knn = run_tool(scripts, "torch_bench_knn1.py")["knn1"]
+    off = {name: r["match"] for name, r in knn.items() if r["match"] != 1.0}
+    if off or not all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in knn.values()):
+        raise AssertionError(f"KNN-1 bench: match fractions below 1.0 {off}, or a time not "
+                             f"finite: {knn}")
+    convex = run_tool(scripts, "torch_bench_convex.py")["convex"]
+    if not all(r["max_abs_err"] < 1e-4 and np.isfinite(r["ms"]) for r in convex.values()):
+        raise AssertionError(f"convex bench: {convex}")
+    study = run_tool(scripts, "torch_quantify_eval_deviations.py")
+    values = [v for m in study["per_seed"] for v in m.values()]
+    values += [v[key] for v in study["spread"].values() for key in ("mean", "spread")]
+    missing = sorted(k for k in EXPECTED["eval forward"] if not study["launches"].get(k))
+    if len(study["per_seed"]) != 3 or not np.all(np.isfinite(values)) or missing:
+        raise AssertionError(f"resample study: metrics {study['per_seed']}, kernels not "
+                             f"launched {missing}")
     return records, launches, vox
+
+
+def run_tool(scripts, name, timeout=300):
+    """Run ``scripts/<name>`` (on the card, its defaults) in a fresh process,
+    print its output, and return the JSON object of its last line."""
+    proc = subprocess.run([sys.executable, os.path.join(scripts, name)], capture_output=True,
+                          text=True, timeout=timeout, cwd=os.path.dirname(scripts))
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"{name} failed (exit {proc.returncode}):\n{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 T0 = time.perf_counter()
@@ -1364,7 +1403,7 @@ def main():
     phase("[10] amp: bf16 in the two 2-D pyramids, card vs CPU at 128x192, flagship training")
     phase_amp(dev)
     phase("[11] tools: gathers, zero store and the repro graph, native voxelizers, profile, "
-          "train-step tool")
+          "train-step tool, KNN-1 and convex benches, resample study")
     tool_results, tool_launches, _ = phase_tools(dev)
 
     kernels = []

@@ -4,11 +4,14 @@ The port's modules carry the upstream torch ``state_dict`` names, so a JAX
 variable tree, renamed by :func:`to_torch_state_dict` (numpy only; the
 port's copy of ``rpeflow_tpu/compat/torch_loader.py : to_torch_state_dict``),
 loads directly, as does an upstream ``.pt`` checkpoint
-(:func:`load_checkpoint`).
+(:func:`load_checkpoint`). A checkpoint the JAX trainer wrote (an orbax
+directory) is turned into such a file by ``scripts/export_torch_checkpoint.py``
+first: the port reads no orbax directory.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Any, Dict, Mapping
 
@@ -100,10 +103,22 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any], strict: b
     return model.load_state_dict(state, strict=strict)
 
 
+def read_checkpoint(path: str) -> Dict[str, Any]:
+    """``torch.load`` of a checkpoint file onto the CPU. A directory (the JAX
+    trainer's orbax checkpoint) raises ``ValueError`` naming the script that
+    exports it to a ``.pt`` file."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (an orbax checkpoint of the JAX trainer?); the port "
+            "reads torch.save files only: convert it with python "
+            f"scripts/export_torch_checkpoint.py --ckpt {path} --out <file>.pt")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def load_checkpoint(model: nn.Module, path: str, strict: bool = True):
     """Load an upstream-format ``.pt`` file: a bare state_dict or
     ``{'state_dict': ...}``, with any DDP ``module.`` prefix stripped."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ckpt = read_checkpoint(path)
     state = ckpt.get("state_dict", ckpt)
     state = {k[len("module."):] if k.startswith("module.") else k: v for k, v in state.items()}
     return model.load_state_dict(state, strict=strict)

@@ -3,7 +3,9 @@
 One ``torch.save`` file per checkpoint with the reference's schema,
 ``{last_epoch, last_step, state_dict, best_metrics}``, plus the optimizer's
 state under ``optimizer``. ``compat.load_checkpoint`` reads the same file
-strictly into the eval model.
+strictly into the eval model. Given a directory (the JAX trainer's orbax
+checkpoint), the loaders raise ``ValueError`` naming
+``scripts/export_torch_checkpoint.py``, which writes this schema from it.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
+from ..compat import read_checkpoint
 from .optim import Optimizer
 
 
@@ -39,10 +42,16 @@ def save_checkpoint(path: str, model: nn.Module, optimizer: Optional[Optimizer],
 
 def restore_checkpoint(path: str, model: nn.Module, optimizer: Optional[Optimizer]) -> Dict:
     """Load weights (strictly) and the optimizer state for a resume; returns
-    ``{last_epoch, last_step, best_metrics}``."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ``{last_epoch, last_step, best_metrics}``. A file without an optimizer
+    state (an exported JAX checkpoint) raises ``ValueError`` when given an
+    optimizer: resuming its epoch with a fresh Adam and a schedule back at
+    step 0 would be a wrong resume; fine-tune it through ``load_weights``."""
+    ckpt = read_checkpoint(path)
+    if optimizer is not None and "optimizer" not in ckpt:
+        raise ValueError(f"{path} holds weights but no optimizer state, so it cannot be "
+                         "resumed; pass it as --weights without --resume to fine-tune it")
     model.load_state_dict(ckpt["state_dict"], strict=True)
-    if optimizer is not None and "optimizer" in ckpt:
+    if optimizer is not None:
         optimizer.load_state_dict(ckpt["optimizer"])
     return {k: ckpt.get(k) for k in ("last_epoch", "last_step", "best_metrics")}
 
@@ -50,7 +59,7 @@ def restore_checkpoint(path: str, model: nn.Module, optimizer: Optional[Optimize
 def load_weights(path: str, model: nn.Module) -> list:
     """Non-strict transfer (pretrain -> fine-tune): copy every entry whose
     name and shape match; returns the names left as they were."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ckpt = read_checkpoint(path)
     source = ckpt.get("state_dict", ckpt)
     source = {k[len("module."):] if k.startswith("module.") else k: v
               for k, v in source.items()}

@@ -4,8 +4,10 @@ As upstream and in the JAX package:
 
 * Adam with eps 1e-7 (or SGD with momentum), the decay added to the
   gradient (L2, not AdamW);
-* every parameter whose name holds ``weight`` is in the ``weight_decay``
-  group and every ``bias`` in the ``bias_decay`` group; the rest (only the
+* parameters are grouped by the last component of their dotted name, the
+  rule of ``rpeflow_tpu/train/optim.py:33-40 _group_of``: ``weight`` is in
+  the ``weight_decay`` group, ``bias`` in the ``bias_decay`` group (the
+  biases of the PointConv ``weight_net`` MLPs too), and the rest (only the
   MDTA ``temperature``) is in no group and never moves. It keeps
   ``requires_grad``, so its gradient still counts in the gradient norm;
 * schedules are functions of the step counter: OneCycle per step (30%
@@ -57,12 +59,15 @@ def make_lr_schedule(cfgs, steps_per_epoch: int) -> Tuple[Callable[[int], float]
 
 
 def param_groups(model: nn.Module) -> Tuple[List[nn.Parameter], List[nn.Parameter]]:
-    """``(weights, biases)`` by parameter name; other parameters are frozen."""
+    """``(weights, biases)`` by the last component of each parameter's name
+    (``rpeflow_tpu/train/optim.py:33-40 _group_of``); other parameters are
+    frozen."""
     weights, biases = [], []
     for name, p in model.named_parameters():
-        if "weight" in name:
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "weight":
             weights.append(p)
-        elif "bias" in name:
+        elif leaf == "bias":
             biases.append(p)
     return weights, biases
 

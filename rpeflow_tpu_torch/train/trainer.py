@@ -276,21 +276,31 @@ class Trainer:
         return path
 
 
-def main(argv=None) -> None:
-    """Command line of ``python -m rpeflow_tpu_torch.train`` (the flags of
-    the JAX ``train.py``, plus ``--device``), and of ``torchrun
-    --nproc_per_node=N -m rpeflow_tpu_torch.train`` over N GPUs."""
+def parser():
+    """The train CLI's parser: the flags of the JAX ``train.py`` (``--port``
+    accepted and ignored, as there), plus ``--device``."""
     import argparse
 
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--config", default="conf/train/pretrain.yaml")
-    parser.add_argument("--weights", default=None, help="Initial weights (.pt)")
-    parser.add_argument("--resume", action="store_true",
-                        help="Resume epoch, step, optimizer and best metrics from --weights")
-    parser.add_argument("--device", default="cuda")
-    parser.add_argument("--overrides", nargs="*", default=[],
-                        help="Dotted config overrides, e.g. training.max_epochs=10")
-    args = parser.parse_args(argv)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default="conf/train/pretrain.yaml")
+    ap.add_argument("--weights", default=None,
+                    help="Initial weights (.pt; export a JAX orbax checkpoint with "
+                         "scripts/export_torch_checkpoint.py)")
+    ap.add_argument("--resume", action="store_true",
+                    help="Resume epoch, step, optimizer and best metrics from --weights")
+    ap.add_argument("--port", default=None,
+                    help="Unused; kept for the reference command line")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--overrides", nargs="*", default=[],
+                    help="Dotted config overrides, e.g. training.max_epochs=10")
+    return ap
+
+
+def main(argv=None) -> None:
+    """Command line of ``python -m rpeflow_tpu_torch.train`` (:func:`parser`),
+    and of ``torchrun --nproc_per_node=N -m rpeflow_tpu_torch.train`` over N
+    GPUs."""
+    args = parser().parse_args(argv)
 
     from .config import load_config
 

@@ -81,3 +81,45 @@ def test_three_steps_match_jax(rng, optimizer):
     start = to_torch_state_dict({"params": params})
     np.testing.assert_array_equal(named["attn.temperature"].detach().numpy(),
                                   start["attn.temperature"])
+
+
+def test_param_groups_match_jax_group_of_on_the_flagship_model():
+    """Every parameter of the pretrain.yaml model lands in the group that
+    JAX ``_group_of`` gives its flax path (by the leaf name): the
+    ``weight_net`` MLPs' biases are biases, not decayed weights."""
+    from rpeflow_tpu.model import RPEFlow as JaxRPEFlow
+    from rpeflow_tpu.train.config import load_config as jax_load_config
+    from rpeflow_tpu.train.optim import _group_of
+    from rpeflow_tpu_torch.model import RPEFlow, seeded_init_
+    from rpeflow_tpu_torch.train.config import load_config
+    from rpeflow_tpu_torch.train.optim import param_groups
+    from torch_port_utils import make_inputs
+
+    cfg = "conf/train/pretrain.yaml"
+    n_samples = (512, 256, 128, 64, 32)
+    jm = JaxRPEFlow(cfgs=jax_load_config(cfg).model, n_samples_list=n_samples)
+    shapes = jax.eval_shape(
+        lambda x: jm.init({"params": jax.random.PRNGKey(0), "mi": jax.random.PRNGKey(1)},
+                          x, train=True, compute_mi=True),
+        make_inputs(0, b=1, h=128, w=128, n=1024, event_ch=20))["params"]
+    flat = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    expected = {}
+    for path, leaf in flat:
+        keys = tuple(k.key for k in path)
+        one = {}
+        node = one
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = np.zeros(leaf.shape, np.float32)
+        (name,) = to_torch_state_dict({"params": one})
+        expected[name] = _group_of(keys)
+
+    model = seeded_init_(RPEFlow(load_config(cfg).model, n_samples), seed=0)
+    weights, biases = param_groups(model)
+    group = {id(p): "weights" for p in weights}
+    group.update({id(p): "biases" for p in biases})
+    got = {name: group.get(id(p), "frozen") for name, p in model.named_parameters()}
+    assert got.keys() == expected.keys()
+    assert sum(g == "biases" and "weight_net" in n for n, g in expected.items()) == 44
+    wrong = sorted(n for n in got if got[n] != expected[n])
+    assert wrong == [], f"{len(wrong)} parameters in the wrong group: {wrong[:5]}"

@@ -20,7 +20,15 @@ levels, 256 points where it builds the model), and its results are checked:
   ``seeded_init_`` checkpoint in the upstream schema it exits 1 (random
   weights fail the README row), its metric table is the port's
   ``Evaluator.run()`` on the same config, and its rows and tolerances are
-  the JAX script's.
+  the JAX script's;
+* ``torch_quantify_eval_deviations``: ``metric_means`` equal (rtol 1e-6) to
+  the JAX script's on the same numpy outputs and batch, the scene and its
+  three subsample draws equal to the JAX script's, and every metric finite;
+* ``torch_bench_knn1``: the four k = 1 formulations giving the indices of
+  ``scripts/bench_knn1.py``'s four, then timed;
+* ``torch_bench_convex``: variants B and C within 1e-5 of the JAX
+  ``convex_upsample`` (``scripts/bench_convex.py`` runs its bench at import,
+  so it is not imported), then timed.
 """
 
 import importlib.util
@@ -232,3 +240,90 @@ def test_verify_checkpoint_parity_keeps_the_jax_rows():
     for dest in ("benchmark", "config", "data_root", "max_batches", "n_resample", "batch_size",
                  "rel_tol_epe2d", "rel_tol_epe3d", "abs_tol_pct", "weights"):
         assert dest in flags, dest
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_resample_metric_means_match_jax(masked):
+    tool = _load("scripts/torch_quantify_eval_deviations.py")
+    jax_tool = _load("scripts/quantify_eval_deviations.py", "jax_quantify_eval_deviations")
+    rng = np.random.RandomState(5)
+    b, h, w, n = 2, 12, 16, 64
+    outputs = {"flow_2d": (rng.randn(b, h, w, 2) * 4).astype(np.float32),
+               "flow_3d": (rng.randn(b, n, 3) * 0.1).astype(np.float32)}
+    batch = {"flow_2d": (rng.randn(b, h, w, 2) * 4).astype(np.float32),
+             "flow_3d": (rng.randn(b, n, 3) * 0.1).astype(np.float32)}
+    if masked:  # validity channels, and a NaN prediction the masks drop
+        batch["flow_2d"] = np.concatenate(
+            [batch["flow_2d"], (rng.rand(b, h, w, 1) > 0.2).astype(np.float32)], -1)
+        batch["flow_3d"] = np.concatenate(
+            [batch["flow_3d"], (rng.rand(b, n, 1) > 0.3).astype(np.float32)], -1)
+        outputs["flow_3d"][0, 3] = np.nan
+    got = tool.metric_means(outputs, batch)
+    want = jax_tool.metric_means(outputs, batch)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, err_msg=k)
+
+
+def test_resample_study(capsys):
+    import importlib
+
+    tool = _load("scripts/torch_quantify_eval_deviations.py")
+    graft = importlib.import_module("__graft_entry__")
+    b, h, w, n = 1, 64, 64, 256
+    want = graft._synth_batch(np.random.RandomState(1), b=b, h=h, w=w, n=2 * n, bins=10,
+                              with_targets=True)
+    subs = tool.resamples(b, h, w, n)
+    assert len(subs) == 3
+    for seed, sub in enumerate(subs):
+        rs = np.random.RandomState(100 + seed)
+        idx = np.stack([rs.choice(2 * n, n, replace=False) for _ in range(b)])
+        for k, v in want.items():
+            if k in ("pcs", "flow_3d"):
+                v = np.take_along_axis(v, idx[..., None], axis=1)
+            np.testing.assert_array_equal(sub[k], v, err_msg=k)
+    res = tool.main(["--device", "cpu", "--h", "64", "--w", "64", "--n", "256", "--b", "1",
+                     "--levels", "2"])
+    out = capsys.readouterr().out
+    assert "only on the TPU" in out and out.count("[resample seed") == 3
+    assert len(res["forward_ms"]) == 3 and res["launches"] == {}
+    assert all(np.isfinite(v) for m in res["per_seed"] for v in m.values())
+    assert all(np.isfinite(v["spread"]) for v in res["spread"].values())
+
+
+def test_bench_knn1_matches_the_jax_formulations(capsys):
+    tool = _load("scripts/torch_bench_knn1.py")
+    jax_tool = _load("scripts/bench_knn1.py", "jax_bench_knn1")
+    inp, qry = tool.make_inputs(2, 512, 128, 2, grid=8)
+    ti, tq = torch.from_numpy(inp), torch.from_numpy(qry)
+    ji, jq = jnp.asarray(inp), jnp.asarray(qry)
+    want = {"current (chunked matmul)": np.asarray(jax_tool.current(ji, jq))[..., 0],
+            "broadcast full": np.asarray(jax_tool.broadcast_full(ji, jq)),
+            "broadcast chunked": np.asarray(jax_tool.broadcast_chunked(ji, jq, chunk=128)),
+            "matmul full": np.asarray(jax_tool.matmul_full(ji, jq))}
+    assert [name for name, _ in tool.VARIANTS] == list(want)
+    for name, fn in tool.VARIANTS:  # broadcast chunked: one chunk of 4320 at Q = 512
+        np.testing.assert_array_equal(fn(ti, tq).numpy(), want[name], err_msg=name)
+    np.testing.assert_array_equal(tool.broadcast_chunked(ti, tq, 128).numpy(),
+                                  want["broadcast chunked"])
+    res = tool.main(["--device", "cpu", "--b", "2", "--q", "512", "--n", "128"])
+    assert capsys.readouterr().out.count(" ms  peak memory not measured") == 4
+    assert all(r["match"] == 1.0 and np.isfinite(r["ms"]) for r in res.values())
+    assert all(r["mismatches"] == 0 or 0 < r["max_gap"] < 1e-2 for r in res.values())
+
+
+def test_bench_convex_matches_the_jax_upsampler(capsys):
+    from rpeflow_tpu.ops.interp import convex_upsample as jax_convex_upsample
+    from rpeflow_tpu_torch.ops.interp import convex_upsample
+
+    tool = _load("scripts/torch_bench_convex.py")
+    flow, mask = tool.make_inputs(2, 8, 12, 4, torch.device("cpu"))
+    want = np.asarray(jax_convex_upsample(jnp.asarray(flow.numpy()), jnp.asarray(mask.numpy()),
+                                          4))
+    for fn in (tool.variant_b, tool.variant_c, convex_upsample):
+        got = fn(flow, mask, 4).numpy()
+        assert got.shape == want.shape == (2, 32, 48, 2)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5, err_msg=fn.__name__)
+    res = tool.main(["--device", "cpu", "--b", "1", "--h", "8", "--w", "12"])
+    assert capsys.readouterr().out.count("max err") == 2
+    assert all(r["max_abs_err"] < 1e-5 and np.isfinite(r["ms"]) for r in res.values())
