@@ -59,7 +59,11 @@ Phases, each of which raises on failure (exit code != 0):
      bench at [4, 144, 240], S = 4 (variants B and C within 1e-4 of the
      port's ``convex_upsample``, their ms), (h) the eval-resample study at
      its defaults (batch 2, 288x480, 8192 points, three draws; every metric
-     finite, each of the five model kernels launched).
+     finite, each of the five model kernels launched);
+ 12. the bench (``python -m rpeflow_tpu_torch.bench --workload all``) twice,
+     each in a fresh process: its ``layers`` line and a metric line for each
+     workload parse, each ``value`` finite, each ``mfu`` in (0, 1.05]; both
+     runs' medians side by side.
 The second-to-last line is a JSON object of per-kernel results (phase 3's
 times, errors, bounds and library time summed over the shapes; the launches
 of one eval forward, phase 5, or, for the correlation's backward, which the
@@ -91,6 +95,7 @@ from rpeflow_tpu_torch.flagship import (  # noqa: F401 (read by the probes under
     training_cfg,
 )
 from rpeflow_tpu_torch.utils import timing
+from rpeflow_tpu_torch.utils.work import bound, kernel_work
 
 SEED = 0
 REDUCED = dict(b=1, h=128, w=192, n=2048, event_ch=20)
@@ -145,54 +150,6 @@ def check_close(name, out, ref, atol, rtol):
 def max_rel(out, ref):
     """Largest difference relative to the largest entry of ``ref``."""
     return errors(out, ref)[1]
-
-
-def bound(nbytes, f32_ops, tf32_ops=0.0):
-    """(ms, "bytes" | "operations") of the least time for the work."""
-    t_bytes = nbytes / timing.PEAK_BYTES
-    t_ops = max(f32_ops / timing.PEAK_F32, tf32_ops / timing.PEAK_TF32)
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def kernel_work(name, shape):
-    """(bytes, f32 operations, TF32 tensor-core operations) of one call of
-    the function at ``shape``, counted from the shapes alone."""
-    f = 4  # float32 / int32 bytes
-    if name == "fps":  # xyz [B, N, 3] -> [B, S]; a step and point: 3 sub, 3 mul, 2 add,
-        # min, compare
-        b, n, s = shape
-        return f * (b * n * 3 + b * s), 10.0 * b * s * n, 0.0
-    if name == "correlation2d":  # f1, f2 [B, H, W, C] -> [B, H, W, 81]
-        b, h, w, c = shape
-        return f * (2 * b * h * w * c + 81 * b * h * w), 2.0 * 81 * c * b * h * w, 0.0
-    if name == "correlation2d_bwd":  # f1, f2, g in; grad1, grad2 out; 81 C FMAs a
-        # pixel for each gradient
-        b, h, w, c = shape
-        return f * b * h * w * (4 * c + 81), 4.0 * 81 * c * b * h * w, 0.0
-    if name == "mdta_qkv":  # LN of x, y; kh x 3 taps on 3C; Gram C x C and sq over the pixels
-        b, h, w, c, kh = shape
-        p = b * h * w
-        nbytes = f * (3 * p * c + 4 * c + kh * 9 * c + b * c * c + 2 * b * c)
-        return nbytes, p * (2 * 8.0 * c + 3 * 2.0 * kh * 3 * c + 2.0 * c * c + 4.0 * c), 0.0
-    if name == "gdfn":  # products x @ w_in, g @ w_out; 3x3 taps on 2h; gate (erf ~ 10 ops)
-        b, h, w, c = shape
-        p, hid = b * h * w, int(2.66 * c)
-        nbytes = f * (2 * p * c + 3 * c * hid + 9 * 2 * hid)
-        products = 2.0 * p * 3 * hid * c
-        # 3xTF32: three tensor-core products for each f32 one
-        return nbytes, p * (2.0 * 9 * 2 * hid + 12.0 * hid), 3 * products
-    if name == "dwconv":  # forward, input and taps gradients: x, gout, taps in; out, dx,
-        # dtaps out
-        b, h, w, c, kh = shape
-        p = b * h * w
-        return f * (4 * p * c + 2 * kh * 3 * c), 3 * 2.0 * kh * 3 * p * c, 0.0
-    if name in ("gather_rows", "gather_lanes"):  # (B, N, M, C, itemsize): table and int32
-        # indices read once, one table row (column) per index written
-        b, n, m, c, item = shape
-        return item * (b * n * c + b * m * c) + 4 * b * m, 0.0, 0.0
-    if name == "zero_store":  # [B, H, W, C] float32 zeros written; no byte of x is needed
-        return f * int(np.prod(shape)), 0.0, 0.0
-    raise KeyError(name)
 
 
 # (B, H, W, C, kh) the depthwise conv is checked at beyond the training
@@ -1353,6 +1310,48 @@ def run_tool(scripts, name, timeout=300):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+def bench_results(stdout):
+    """The bench's ``layers`` object and its metric lines by workload, from
+    its stdout; raises unless there is a metric line for every workload,
+    each ``value`` finite and each ``mfu`` in (0, 1.05]."""
+    from rpeflow_tpu_torch.bench import MFU_LIMIT, WORKLOADS
+
+    objs = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+    layers = [o["layers"] for o in objs if "layers" in o]
+    lines = {o["workload"]: o for o in objs if "metric" in o}
+    if len(layers) != 1 or sorted(lines) != sorted(WORKLOADS):
+        raise AssertionError(f"bench: {len(layers)} layers lines, metric lines of {sorted(lines)}")
+    for name, line in lines.items():
+        if line["metric"] != WORKLOADS[name].metric or not np.isfinite(line["value"]) \
+                or not 0 < line["mfu"] <= MFU_LIMIT:
+            raise AssertionError(f"bench {name}: {line}")
+    return layers[0], lines
+
+
+def phase_bench():
+    """12: the bench twice, each run in a fresh process (this one's cached
+    blocks handed back first), checked by :func:`bench_results`."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for i in range(2):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "rpeflow_tpu_torch.bench", "--workload",
+                               "all"], capture_output=True, text=True, timeout=900, cwd=root)
+        print(proc.stdout, end="", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"bench run {i + 1} failed (exit {proc.returncode}):\n"
+                                 f"{proc.stderr[-6000:]}")
+        runs.append(bench_results(proc.stdout)[1])
+        print(f"  bench run {i + 1}: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in runs[0]:
+        a, b = (r[name] for r in runs)
+        print(f"  {name}: median {a['ms_median']:.2f} | {b['ms_median']:.2f} ms (q1-q3 "
+              f"{a['ms_q1']:.2f}-{a['ms_q3']:.2f} | {b['ms_q1']:.2f}-{b['ms_q3']:.2f}), "
+              f"{a['metric']} {a['value']:.4f} | {b['value']:.4f} {a['unit']}, mfu "
+              f"{a['mfu']:.5f} | {b['mfu']:.5f}", flush=True)
+
+
 T0 = time.perf_counter()
 
 
@@ -1405,6 +1404,9 @@ def main():
     phase("[11] tools: gathers, zero store and the repro graph, native voxelizers, profile, "
           "train-step tool, KNN-1 and convex benches, resample study")
     tool_results, tool_launches, _ = phase_tools(dev)
+    phase("[12] the bench (python -m rpeflow_tpu_torch.bench --workload all), twice, each in a "
+          "fresh process")
+    phase_bench()
 
     kernels = []
     for name, (src, rep) in SOURCES.items():

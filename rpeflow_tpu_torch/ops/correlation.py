@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
+from ..utils.flops import counted
 
 #: channels a shared-memory stage holds per pixel, adjacent pixels a thread
 #: owns, and the kernel's limits (csrc/correlation.cu)
@@ -181,6 +182,8 @@ def launch_fwd(f1: torch.Tensor, f2: torch.Tensor, plan: CorrPlan) -> torch.Tens
     return out
 
 
+@counted("correlation2d",
+         lambda f1, f2, max_displacement: (*f1.shape, max_displacement))
 def correlation2d_fwd(f1: torch.Tensor, f2: torch.Tensor,
                       max_displacement: int) -> torch.Tensor:
     """Cost volume ``[B, H, W, (2d+1)^2]`` of float32 ``f1, f2 [B, H, W, C]``
@@ -211,6 +214,8 @@ def launch_bwd(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor, plan: CorrPl
     return grad1, grad2
 
 
+@counted("correlation2d_bwd",
+         lambda f1, f2, g, max_displacement: (*f1.shape, max_displacement))
 def correlation2d_bwd(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
                       max_displacement: int):
     """``(grad1, grad2)`` of the cost volume for the output gradient ``g``:

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
+from ..utils.flops import counted
 
 THREADS = 256
 #: shared-memory ring stages at one column a thread (half at two), and the
@@ -198,6 +199,7 @@ def launch_fwd(x: torch.Tensor, taps: torch.Tensor, plan: DwPlan) -> torch.Tenso
     return out
 
 
+@counted("dwconv", lambda x, taps: (*x.shape, taps.shape[0]))
 def dwconv_fwd(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """The K5 forward for CUDA tensors, :func:`dwconv_plain` for CPU tensors."""
     kh, _, c = taps.shape
@@ -234,6 +236,8 @@ def launch_bwd(x: torch.Tensor, g: torch.Tensor, taps: torch.Tensor, plan: DwPla
     return dx, dtaps
 
 
+@counted("dwconv_bwd", lambda x, g, taps, need_dx=True, need_dtaps=True:
+         (*x.shape, taps.shape[0], int(need_dx) + int(need_dtaps)))
 def dwconv_bwd(x: torch.Tensor, g: torch.Tensor, taps: torch.Tensor,
                need_dx: bool = True, need_dtaps: bool = True):
     """``(dx, dtaps)`` for the output gradient ``g`` (None where not

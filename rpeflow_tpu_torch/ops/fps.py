@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from ..utils.flops import counted
 
 # the kernel holds up to 32 points in each of its 512 threads' registers
 MAX_POINTS = 32 * 512
@@ -39,6 +40,7 @@ def furthest_point_sampling_plain(xyz: torch.Tensor, n_samples: int) -> torch.Te
     return out.int()
 
 
+@counted("fps", lambda xyz, n_samples: (xyz.shape[0], xyz.shape[1], n_samples))
 def furthest_point_sampling(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
     """``xyz [B, N, 3]`` float32 -> ``[B, n_samples]`` int32 indices."""
     if xyz.device.type == "cpu":

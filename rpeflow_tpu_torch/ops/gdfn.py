@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
+from ..utils.flops import counted
 from ._autograd import vjp_by_recompute
 from .dwconv import dwconv, dwconv_plain
 
@@ -32,6 +33,7 @@ def gdfn_plain(x, w_in, w_dw, w_out, dw_fn=dwconv_plain):
     return torch.matmul(g, w_out)
 
 
+@counted("gdfn", lambda x, w_in, w_dw, w_out: (*x.shape, w_out.shape[0]))
 def gdfn_fwd(x: torch.Tensor, w_in: torch.Tensor, w_dw: torch.Tensor,
              w_out: torch.Tensor) -> torch.Tensor:
     """``x [B, H, W, C]``, ``w_in [C, 2h]``, ``w_dw [3, 3, 2h]``,

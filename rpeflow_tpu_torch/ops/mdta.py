@@ -33,6 +33,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from . import _cuda
+from ..utils.flops import counted
 from ._autograd import vjp_by_recompute
 from .dwconv import dwconv, dwconv_plain
 
@@ -202,6 +203,7 @@ def launch_qkv(x, y, ln, dw, plan: MdtaPlan):
     return v, qk, sq
 
 
+@counted("mdta_qkv", lambda x, y, ln, dw, kh: (*x.shape, kh))
 def mdta_qkv(x: torch.Tensor, y: torch.Tensor, ln: torch.Tensor, dw: torch.Tensor,
              kh: int):
     """``x, y [B, H, W, C]``, ``ln [4, C]`` rows (lnx_w, lnx_b, lny_w, lny_b),

@@ -56,6 +56,15 @@ def test_port_imports_its_parallel_modules(probe):
         assert mod in names, mod
 
 
+def test_port_imports_its_bench_modules(probe):
+    """The bench and the work, FLOP and profile modules it reads import
+    with the rest, pulling in no JAX (checked above for all modules)."""
+    names, _, _ = probe
+    for mod in ("rpeflow_tpu_torch.bench", "rpeflow_tpu_torch.utils.work",
+                "rpeflow_tpu_torch.utils.flops", "rpeflow_tpu_torch.utils.profile"):
+        assert mod in names, mod
+
+
 def test_port_imports_no_module_of_the_jax_package(probe):
     _, _, jax_pkg = probe
     assert jax_pkg == [], f"importing the port pulled in: {jax_pkg}"
