@@ -19,7 +19,7 @@ Phases, each of which raises on failure (exit code != 0):
   4. card vs CPU: the whole eval forward at a reduced shape, same weights;
   5. flagship: the FlyingThings3D eval forward (batch 4, 576x960, 20-channel
      event voxel, 8192 + 8192 points, 5 decode levels), launch counts of
-     every kernel, metric sums, ms per batch;
+     every kernel, output shapes, metric sums (its timing: phase 12);
   6. autograd on the card: the gradients of the correlation, MDTA, GDFN and
      depthwise-conv functions (kernels inside) against torch.autograd
      through their plain compositions, at level-1 shapes;
@@ -496,31 +496,6 @@ def phase_flagship(dev):
         raise AssertionError(f"metric sums not finite: {sums}")
     print(f"  outputs finite; metric sums {sums}")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-
-    iters = 10
-    batches = [make_batch(SEED + 10 + i, device=dev, **{**FLAGSHIP}) for i in range(iters)]
-    with torch.inference_mode():
-        model(batches[-1])  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for bt in batches:
-            last = model(bt)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / iters
-    if not torch.isfinite(last["flow_2d"]).all():
-        raise AssertionError("timed forward not finite")
-    print(f"  flagship forward: {dt * 1e3:.2f} ms/batch of {b}, {b / dt:.2f} frame-pairs/s"
-          f" ({iters} forwards, inputs differ per iteration)", flush=True)
-
-    with torch.inference_mode(), torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-        model(batches[0])
-        torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    key = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
-           else "self_cuda_time_total")
-    print(avgs.table(sort_by=key, row_limit=25))
     return launches
 
 
@@ -1310,27 +1285,11 @@ def run_tool(scripts, name, timeout=300):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def bench_results(stdout):
-    """The bench's ``layers`` object and its metric lines by workload, from
-    its stdout; raises unless there is a metric line for every workload,
-    each ``value`` finite and each ``mfu`` in (0, 1.05]."""
-    from rpeflow_tpu_torch.bench import MFU_LIMIT, WORKLOADS
-
-    objs = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
-    layers = [o["layers"] for o in objs if "layers" in o]
-    lines = {o["workload"]: o for o in objs if "metric" in o}
-    if len(layers) != 1 or sorted(lines) != sorted(WORKLOADS):
-        raise AssertionError(f"bench: {len(layers)} layers lines, metric lines of {sorted(lines)}")
-    for name, line in lines.items():
-        if line["metric"] != WORKLOADS[name].metric or not np.isfinite(line["value"]) \
-                or not 0 < line["mfu"] <= MFU_LIMIT:
-            raise AssertionError(f"bench {name}: {line}")
-    return layers[0], lines
-
-
 def phase_bench():
     """12: the bench twice, each run in a fresh process (this one's cached
-    blocks handed back first), checked by :func:`bench_results`."""
+    blocks handed back first), checked by ``bench.parse_output``."""
+    from rpeflow_tpu_torch.bench import parse_output
+
     root = os.path.dirname(os.path.abspath(__file__))
     runs = []
     for i in range(2):
@@ -1342,7 +1301,7 @@ def phase_bench():
         if proc.returncode != 0:
             raise AssertionError(f"bench run {i + 1} failed (exit {proc.returncode}):\n"
                                  f"{proc.stderr[-6000:]}")
-        runs.append(bench_results(proc.stdout)[1])
+        runs.append(parse_output(proc.stdout)[1])
         print(f"  bench run {i + 1}: {time.perf_counter() - t0:.1f} s", flush=True)
     for name in runs[0]:
         a, b = (r[name] for r in runs)

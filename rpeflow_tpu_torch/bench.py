@@ -21,9 +21,11 @@ gives the FLOPs of an iteration; ``warmup`` untimed iterations (cuDNN's
 algorithm choice, the kernels' build, the allocator) come next; then
 ``iters`` iterations, each timed on the host clock between two
 ``torch.cuda.synchronize()`` calls, the kernel launches of the first one
-counted. Outside the timed window: every element of the last ``flow_2d`` and
-``flow_3d`` finite (eval); every step's summary finite and a parameter
-moved (train). Nothing is retried and no reading is dropped.
+counted; ``value`` is the samples of all of them over the sum of their
+times, beside the iterations' median and quartiles. Outside the timed
+window: every element of the last ``flow_2d`` and ``flow_3d`` finite
+(eval); every step's summary finite and a parameter moved (train).
+Nothing is retried and no reading is dropped.
 
 Then, per workload, a fresh child process (``--traced``) runs 3 iterations
 under ``torch.profiler`` (after one warm-up) and reports the device ms per
@@ -212,21 +214,22 @@ def device_info(dev) -> dict:
 
 
 def metric_line(wl, times_ms, flop, peak_gib, batches_gib, launches, device) -> dict:
-    """The workload's metric line: ``value`` (samples a second, from the
-    median), the median, quartiles and extremes of the iterations' ms,
-    ``flop_per_iter`` and ``mfu``, its share of the f32 peak at the median
-    (``timing.PEAK_F32``)."""
+    """The workload's metric line: ``value``, the samples of all timed
+    iterations over the whole timed window (``ms_window``, the sum of the
+    iterations' ms, so a stall inside the window lowers it); the median,
+    quartiles and extremes of the iterations' ms; ``flop_per_iter`` and
+    ``mfu``, its share of the f32 peak at the median (``timing.PEAK_F32``)."""
     t = np.asarray(times_ms, dtype=np.float64)
-    median = float(np.median(t))
+    median, window = float(np.median(t)), float(t.sum())
     q1, q3 = (float(v) for v in np.percentile(t, [25, 75]))
-    value = wl.shape["b"] / (median * 1e-3)
+    value = wl.shape["b"] * len(t) / (window * 1e-3)
     line = {"workload": wl.name, "metric": wl.metric, "value": value, "unit": wl.unit}
     if not wl.train:
         line["vs_baseline"] = value / RTX3090_FRAME_PAIRS_PER_SEC_EST
     line.update(
-        ms_median=median, ms_q1=q1, ms_q3=q3, ms_min=float(t.min()), ms_max=float(t.max()),
-        iters=len(t), warmup=wl.warmup, ms_iters=[float(v) for v in t], peak_gib=peak_gib,
-        batches_gib=batches_gib, flop_per_iter=flop,
+        ms_window=window, ms_median=median, ms_q1=q1, ms_q3=q3, ms_min=float(t.min()),
+        ms_max=float(t.max()), iters=len(t), warmup=wl.warmup, ms_iters=[float(v) for v in t],
+        peak_gib=peak_gib, batches_gib=batches_gib, flop_per_iter=flop,
         mfu=flop / (median * 1e-3 * timing.PEAK_F32), precision="float32, TF32 off",
         launches=launches, device=device)
     return line
@@ -258,6 +261,23 @@ def report(results) -> int:
     for line, _ in results:
         print(json.dumps(line), flush=True)
     return 0
+
+
+def parse_output(stdout):
+    """The ``layers`` object and the metric lines by workload of one bench
+    run's stdout; raises ``ValueError`` unless there is one ``layers`` line
+    and a metric line for every workload, each with its workload's metric,
+    a finite ``value`` and an ``mfu`` in (0, MFU_LIMIT]."""
+    objs = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+    found = [o["layers"] for o in objs if "layers" in o]
+    lines = {o["workload"]: o for o in objs if "metric" in o}
+    if len(found) != 1 or sorted(lines) != sorted(WORKLOADS):
+        raise ValueError(f"bench: {len(found)} layers lines, metric lines of {sorted(lines)}")
+    for name, line in lines.items():
+        if line["metric"] != WORKLOADS[name].metric or not np.isfinite(line["value"]) \
+                or not 0 < line["mfu"] <= MFU_LIMIT:
+            raise ValueError(f"bench {name}: {line}")
+    return found[0], lines
 
 
 def layers(wl, dev, seed, cfg=None, runs=TRACED_RUNS) -> dict:

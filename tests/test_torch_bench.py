@@ -15,7 +15,8 @@ tests/torch_port_utils.py, batch 1, one intra-op thread.
 * The metric line's keys, units, ``value`` and ``mfu``; the refusals (an
   ``mfu`` over 1.05, a non-finite output, a step that moved nothing, a
   kernel launched fewer times than its path's count) each make the bench
-  exit 1 with no metric line; ``chip_smoke.bench_results`` reads a run.
+  exit 1 with no metric line; ``bench.parse_output`` (which chip_smoke.py
+  phase 12 and scripts/torch_bench_spread.py read a run with) checks one.
 * Both workloads measured and traced at the tiny size on the CPU (the
   plain versions: no launch counted).
 * ``python -m rpeflow_tpu_torch.bench`` with no card exits 2 with its
@@ -44,7 +45,6 @@ from rpeflow_tpu_torch.compat import load_jax_variables
 from rpeflow_tpu_torch.ops import correlation, dwconv, fps, gdfn, mdta
 from rpeflow_tpu_torch.train.config import ConfigNode
 from rpeflow_tpu_torch.utils.flops import FlopCount
-from chip_smoke import bench_results
 from torch_port_utils import assert_flow_close, fill_variables, make_inputs, small_cfg_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -220,14 +220,14 @@ def test_flop_count_same_on_kernel_and_plain_route(monkeypatch):
 
 @pytest.fixture(scope="module")
 def tiny_runs():
-    return {name: bench.measure(tiny(name, iters=2, warmup=1), CPU, 0, tiny_cfg())
+    return {name: bench.measure(tiny(name, iters=1, warmup=0), CPU, 0, tiny_cfg())
             for name in bench.WORKLOADS}
 
 
 @pytest.mark.parametrize("name", list(bench.WORKLOADS))
 def test_workload_measured_at_tiny_size(tiny_runs, name):
     times, flop, peak, batches_gib, launches, faults = tiny_runs[name]
-    assert len(times) == 2 and all(t > 0 for t in times)
+    assert len(times) == 1 and times[0] > 0
     assert flop > 0 and faults == []
     assert peak is None and batches_gib is None  # off the card
     assert launches == dict.fromkeys(bench.WORKLOADS[name].expected, 0)  # plain versions
@@ -249,7 +249,7 @@ def test_traced_run_at_tiny_size():
 # -- the metric line and the refusals ------------------------------------------
 
 DEVICE = {"name": "NVIDIA H100 80GB HBM3", "power_limit": "700.00 W"}
-TIMES = [410.0, 400.0, 430.0, 420.0, 500.0]  # median 420 ms
+TIMES = [410.0, 400.0, 430.0, 420.0, 500.0]  # median 420 ms, 2160 ms in all
 
 
 def fake_line(name, flop=1e12, times=TIMES):
@@ -260,8 +260,8 @@ def fake_line(name, flop=1e12, times=TIMES):
 @pytest.mark.parametrize("name", list(bench.WORKLOADS))
 def test_metric_line(name):
     line = fake_line(name)
-    keys = {"workload", "metric", "value", "unit", "ms_median", "ms_q1", "ms_q3", "ms_min",
-            "ms_max", "iters", "warmup", "ms_iters", "peak_gib", "batches_gib",
+    keys = {"workload", "metric", "value", "unit", "ms_window", "ms_median", "ms_q1", "ms_q3",
+            "ms_min", "ms_max", "iters", "warmup", "ms_iters", "peak_gib", "batches_gib",
             "flop_per_iter", "mfu", "precision", "launches", "device"}
     if name == "ft3d_eval":
         keys.add("vs_baseline")
@@ -273,7 +273,8 @@ def test_metric_line(name):
     assert set(line) == keys
     assert (line["ms_median"], line["ms_q1"], line["ms_q3"]) == (420.0, 410.0, 430.0)
     assert (line["ms_min"], line["ms_max"], line["iters"]) == (400.0, 500.0, 5)
-    assert line["value"] == pytest.approx(4 / 0.420)
+    assert line["ms_window"] == 2160.0
+    assert line["value"] == pytest.approx(4 * 5 / 2.160)  # the window's rate, not 4 / median
     assert line["mfu"] == pytest.approx(1e12 / (0.420 * 67e12))
     assert line["device"] == DEVICE and json.loads(json.dumps(line)) == line
 
@@ -315,19 +316,23 @@ def test_bench_refuses(case, capsys):
 def test_chip_smoke_reads_a_bench_run():
     lines = [fake_line(name) for name in bench.WORKLOADS]
     stdout = "\n".join(json.dumps(o) for o in [{"layers": {}, "device": DEVICE}] + lines)
-    layers, read = bench_results(stdout + "\n")
+    layers, read = bench.parse_output(stdout + "\n")
     assert layers == {} and read == {line["workload"]: line for line in lines}
-    with pytest.raises(AssertionError):
-        bench_results("\n".join(json.dumps(o) for o in [{"layers": {}}] + lines[:1]))
-    with pytest.raises(AssertionError):
-        bench_results("\n".join(json.dumps(o) for o in
-                                [{"layers": {}}, lines[0], dict(lines[1], mfu=1.2)]))
+    with pytest.raises(ValueError):
+        bench.parse_output("\n".join(json.dumps(o) for o in [{"layers": {}}] + lines[:1]))
+    with pytest.raises(ValueError):
+        bench.parse_output("\n".join(json.dumps(o) for o in
+                                      [{"layers": {}}, lines[0], dict(lines[1], mfu=1.2)]))
+    with pytest.raises(ValueError):
+        bench.parse_output("\n".join(json.dumps(o) for o in
+                                      [{"layers": {}}, lines[0], dict(lines[1], value=math.nan)]))
 
 
 def test_spread_tool_summarises_runs():
     """scripts/torch_bench_spread.py: per run the spread of the iterations,
     the first 3 timed iterations against the rest, the card's clock and
-    power range; between runs the medians' range."""
+    power range; between runs the medians' and the values' range. A run
+    with a metric line missing is refused (``bench.parse_output``)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -349,8 +354,11 @@ def test_spread_tool_summarises_runs():
                                "samples": 2}
     spread = tool.between(runs)
     assert set(spread) == set(bench.WORKLOADS)
-    assert spread["ft3d_train"]["range"] == [420.0, 630.0]
-    assert spread["ft3d_train"]["ratio"] == pytest.approx(1.5)
+    assert spread["ft3d_train"]["ms_median"]["range"] == [420.0, 630.0]
+    assert spread["ft3d_train"]["ms_median"]["ratio"] == pytest.approx(1.5)
+    assert spread["ft3d_eval"]["value"]["ratio"] == pytest.approx(1.5)
+    with pytest.raises(ValueError):
+        tool.summarise("\n".join(stdout.splitlines()[:-1]), [])
 
 
 # -- no card -------------------------------------------------------------------
