@@ -63,7 +63,22 @@ Phases, each of which raises on failure (exit code != 0):
  12. the bench (``python -m rpeflow_tpu_torch.bench --workload all``) twice,
      each in a fresh process: its ``layers`` line and a metric line for each
      workload parse, each ``value`` finite, each ``mfu`` in (0, 1.05]; both
-     runs' medians side by side.
+     runs' medians side by side;
+ 13. DSEC (conf/test/dsec.yaml, conf/train/dsec.yaml; ``flagship.DSEC_EVAL``,
+     ``DSEC_TRAIN``, batches of DSEC's form from ``make_dsec_batch``): (a) the
+     eval forward at batch 3, 480x640, 8192 + 8192 points, its launches
+     (those of ``bench.EVAL_LAUNCHES``), shapes and ``with_occ=False`` metric
+     sums, 1 warm-up and 3 timed forwards, peak memory; (b) the fine-tune
+     step (l1, MI on, Adam) at the same shape, its launches
+     (``bench.TRAIN_LAUNCHES``), 1 warm-up and 3 timed steps, peak memory,
+     then the same at conf/train/dsec.yaml's global batch of 12 on one card;
+     (c) each model kernel against its plain version, under phase 3's
+     tolerances and timed, at every distinct shape that (a) and (b) gave it
+     (their warm-ups recorded at the wrappers, ``utils/flops.py :
+     FlopCount.calls``); (d) card against CPU at DSEC's 3:4 aspect, batch 1,
+     144x192, 2048 points: the forward and its metric sums, and one l1 step
+     with the sparse masks under phase 7's bounds. One JSON line
+     ``{"dsec": ...}`` holds its numbers.
 The second-to-last line is a JSON object of per-kernel results (phase 3's
 times, errors, bounds and library time summed over the shapes; the launches
 of one eval forward, phase 5, or, for the correlation's backward, which the
@@ -187,40 +202,26 @@ def dwconv_shapes():
     return shapes
 
 
-def phase_kernels(dev):
-    """Each kernel vs its plain version at the flagship forward's and the
-    training step's shapes (timed, summed, with bounds), then at edge shapes
-    (ragged tiles, ties; checked only)."""
-    import torch.nn.functional as F
+class KernelCases:
+    """Each model kernel against its plain version on the card at one shape,
+    inputs drawn from one seeded generator, under phase 3's tolerances; each
+    case raises on a breach and returns its inputs, outputs and references."""
 
-    from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, fps, gdfn, mdta
+    def __init__(self, dev, seed):
+        self.dev = dev
+        self.g = torch.Generator(device=dev).manual_seed(seed)
 
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
-    results = {}
+    def rnd(self, *shape):
+        return torch.randn(*shape, generator=self.g, device=self.dev)
 
-    def record(name, shape, out_ms, plain_ms, abs_err, rel_err, library_ms=None):
-        r = results.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
-                                      "bound_ms": 0.0, "bound": {"bytes": 0.0, "operations": 0.0},
-                                      "library_ms": None})
-        b_ms, by = bound(*kernel_work(name, shape))
-        r["ms"] += out_ms
-        r["plain_ms"] += plain_ms
-        r["max_abs_err"] = max(r["max_abs_err"], abs_err)
-        r["bound_ms"] += b_ms
-        r["bound"][by] += b_ms
-        if library_ms is not None:
-            r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
-        lib = "" if library_ms is None else f"  library {library_ms:9.4f} ms"
-        print(f"  {name:14s} {str(shape):28s} kernel {out_ms:9.4f} ms  plain {plain_ms:9.4f} ms"
-              f"{lib}  bound {b_ms:8.4f} ms ({by})  max|d| {abs_err:.3e}  rel {rel_err:.3e}",
-              flush=True)
+    def fps(self, b, n, s, ties=False):
+        """Indices equal to the plain version's."""
+        from rpeflow_tpu_torch.ops import fps
 
-    def fps_case(b, n, s, ties):
-        scale = torch.tensor([20., 12., 33.], device=dev)
-        xyz = torch.rand(b, n, 3, generator=g, device=dev) * scale
+        scale = torch.tensor([20., 12., 33.], device=self.dev)
+        xyz = torch.rand(b, n, 3, generator=self.g, device=self.dev) * scale
         if ties:  # duplicated points on an integer grid: exact distance ties
-            dup = torch.randint(0, max(n // 4, 1), (n,), generator=g, device=dev)
+            dup = torch.randint(0, max(n // 4, 1), (n,), generator=self.g, device=self.dev)
             xyz = torch.round(xyz[:, dup])
         out = fps.furthest_point_sampling(xyz, s)
         ref = fps.furthest_point_sampling_plain(xyz, s)
@@ -230,23 +231,29 @@ def phase_kernels(dev):
             raise AssertionError(f"fps {(b, n, s)} ties={ties}: {n_diff} indices differ")
         return xyz
 
-    def gdfn_case(b, h, w, c):
-        hid = int(c * 2.66)
+    def gdfn(self, b, h, w, c):
+        """atol 1e-5, rtol 1e-4."""
+        from rpeflow_tpu_torch.ops import gdfn
+
+        rnd, hid = self.rnd, int(c * 2.66)
         args = (rnd(b, h, w, c), rnd(c, 2 * hid) / c ** 0.5, rnd(3, 3, 2 * hid) / 3.0,
                 rnd(hid, c) / hid ** 0.5)
         out, ref = gdfn.gdfn(*args), gdfn.gdfn_plain(*args)
         check_close(f"gdfn {(b, h, w, c)}", out, ref, atol=1e-5, rtol=1e-4)
         return args, out, ref
 
-    def mdta_case(b, h, w, c, kh):
+    def mdta(self, b, h, w, c, kh):
         """The kernel vs the plain version (v atol 1e-5; qk and sq, sums over
         up to 34,560 tokens in another order, within 1e-4 of their largest
         entry), a second call bitwise equal, the plan's shared memory the
         kernel's own count."""
+        from rpeflow_tpu_torch.ops import _cuda, mdta
+
+        rnd = self.rnd
         x, y = rnd(b, h, w, c), rnd(b, h, w, c)
         ln = torch.stack([1 + 0.1 * rnd(c), 0.1 * rnd(c), 1 + 0.1 * rnd(c), 0.1 * rnd(c)])
         args = (x, y, ln, 0.2 * rnd(kh, 3, 3 * c), kh)
-        plan = mdta.mdta_plan(b, h, w, c, kh, _cuda.sm_count(dev))
+        plan = mdta.mdta_plan(b, h, w, c, kh, _cuda.sm_count(self.dev))
         if _cuda.lib().rpeflow_mdta_smem_bytes(c, kh, plan.th, plan.tw) != plan.smem_bytes:
             raise AssertionError(f"mdta_qkv {(b, h, w, c, kh)}: plan and kernel count "
                                  "shared memory differently")
@@ -260,17 +267,14 @@ def phase_kernels(dev):
             raise AssertionError(f"mdta_qkv {(b, h, w, c, kh)}: two calls differ")
         return args, outs, refs
 
-    # K1: one FPS over both clouds stacked, [8, 8192, 3] -> 4096
-    xyz = fps_case(8, 8192, 4096, False)
-    record("fps", (8, 8192, 4096), time_ms(lambda: fps.furthest_point_sampling(xyz, 4096)),
-           time_ms(lambda: fps.furthest_point_sampling_plain(xyz, 4096), runs=20, warmup=1),
-           0.0, 0.0)
-
-    def corr_case(b, h, w, c, d, plans=None):
+    def corr(self, b, h, w, c, d, plans=None):
         """The forward and the fused backward (under ``plans``, else the
         default plans) vs the plain versions (forward atol 1e-5, each
         gradient within 1e-5 of its largest entry), one launch a wrapper
         call, two backward calls bitwise equal."""
+        from rpeflow_tpu_torch.ops import _cuda, correlation
+
+        rnd = self.rnd
         f1, f2, g_ = rnd(b, h, w, c), rnd(b, h, w, c), rnd(b, h, w, (2 * d + 1) ** 2)
         if plans is None:
             fwd = lambda: correlation.correlation2d_fwd(f1, f2, d)  # noqa: E731
@@ -294,43 +298,16 @@ def phase_kernels(dev):
             raise AssertionError(f"correlation2d {(b, h, w, c, d)}: two backward calls differ")
         return f1, f2, g_, (out, ref), (grads, refs)
 
-    # K2 on the flagship's five decode levels (the training step's too): the
-    # forward timed alone, as before the backward kernel existed, then the
-    # fused backward against the plain backward
-    for h, w, c, _ in LEVELS:
-        f1, f2, g_, (out, ref), (grads, refs) = corr_case(4, h, w, c, 4)
-        record("correlation2d", (4, h, w, c),
-               time_ms(lambda: correlation.correlation2d(f1, f2, 4)),
-               time_ms(lambda: correlation.correlation2d_plain(f1, f2, 4)), *errors(out, ref))
-        record("correlation2d_bwd", (4, h, w, c),
-               time_ms(lambda: correlation.correlation2d_bwd(f1, f2, g_, 4)),
-               time_ms(lambda: correlation.correlation2d_bwd_plain(f1, f2, g_, 4)),
-               max(errors(a, b_)[0] for a, b_ in zip(grads, refs)),
-               max(max_rel(a, b_) for a, b_ in zip(grads, refs)))
-
-    mdta_shapes, gdfn_shapes = [], []
-    for h, w, c, n in LEVELS:
-        mdta_shapes += [(8, h, w, c, 3), (4, h, w, 81, 3), (4, h, w, 96, 3),
-                        (8, 1, n, c, 1), (4, 1, n, c, 1), (4, 1, n, 64, 1)]
-        gdfn_shapes += [(8, h, w, c), (4, h, w, 81), (4, h, w, 96)]
-    for shape in mdta_shapes:
-        args, outs, refs = mdta_case(*shape)
-        record("mdta_qkv", shape, time_ms(lambda: mdta.mdta_qkv(*args)),
-               time_ms(lambda: mdta.mdta_qkv_plain(*args)), errors(outs[0], refs[0])[0],
-               max(errors(o, r)[1] for o, r in zip(outs[1:], refs[1:])))
-    for shape in gdfn_shapes:
-        args, out, ref = gdfn_case(*shape)
-        record("gdfn", shape, time_ms(lambda: gdfn.gdfn(*args)),
-               time_ms(lambda: gdfn.gdfn_plain(*args)), *errors(out, ref))
-
-    def dwconv_case(b, h, w, c, kh, plans=None):
+    def dwconv(self, b, h, w, c, kh, plans=None):
         """The forward and the fused backward (under ``plans``, else the
         default plans) vs the plain versions (forward and input gradient
         atol 1e-5, the taps gradient -- a sum over every pixel, in another
         order -- within 1e-4 of its largest entry), one launch a wrapper
         call, two backward calls bitwise equal."""
-        x, gout = rnd(b, h, w, c), rnd(b, h, w, c)
-        taps = rnd(kh, 3, c) / 3
+        from rpeflow_tpu_torch.ops import _cuda, dwconv
+
+        x, gout = self.rnd(b, h, w, c), self.rnd(b, h, w, c)
+        taps = self.rnd(kh, 3, c) / 3
         if plans is None:
             fwd = lambda: dwconv.dwconv_fwd(x, taps)  # noqa: E731
             bwd = lambda: dwconv.dwconv_bwd(x, gout, taps)  # noqa: E731
@@ -353,39 +330,133 @@ def phase_kernels(dev):
             raise AssertionError(f"dwconv {(b, h, w, c, kh)}: two backward calls differ")
         return x, gout, taps, got, want
 
-    # K5 on the training step's shapes (dwconv_shapes). Timed: the kernel's
-    # forward + fused backward against the plain conv's forward + autograd
-    # backward, and against one library call, F.conv2d(groups=C) on the
-    # channels-last view, forward + backward.
-    for b, h, w, c, kh in dwconv_shapes():
-        x, gout, taps, got, want = dwconv_case(b, h, w, c, kh)
 
-        def kernel_pass():
-            return dwconv.dwconv_fwd(x, taps), *dwconv.dwconv_bwd(x, gout, taps)
+class KernelRecords(dict):
+    """Per-kernel sums over the shapes timed: ms, plain ms, the largest
+    error, the bound (by what it is bound) and the library call's ms."""
 
-        xl, tl = x.clone().requires_grad_(), taps.clone().requires_grad_()
+    def record(self, name, shape, out_ms, plain_ms, abs_err, rel_err, library_ms=None):
+        r = self.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
+                                   "bound_ms": 0.0, "bound": {"bytes": 0.0, "operations": 0.0},
+                                   "library_ms": None, "shapes": 0})
+        b_ms, by = bound(*kernel_work(name, shape))
+        r["shapes"] += 1
+        r["ms"] += out_ms
+        r["plain_ms"] += plain_ms
+        r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+        r["bound_ms"] += b_ms
+        r["bound"][by] += b_ms
+        if library_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
+        lib = "" if library_ms is None else f"  library {library_ms:9.4f} ms"
+        print(f"  {name:14s} {str(shape):28s} kernel {out_ms:9.4f} ms  plain {plain_ms:9.4f} ms"
+              f"{lib}  bound {b_ms:8.4f} ms ({by})  max|d| {abs_err:.3e}  rel {rel_err:.3e}",
+              flush=True)
 
-        def plain_pass():
-            out = dwconv.dwconv_plain(xl, tl)
-            return (out.detach(), *torch.autograd.grad(out, (xl, tl), gout))
 
-        xc = x.permute(0, 3, 1, 2).detach().requires_grad_()  # NCHW view, channels-last strides
-        wc = taps.permute(2, 0, 1).unsqueeze(1).contiguous().requires_grad_()
-        gc = gout.permute(0, 3, 1, 2)
+def dwconv_timed(results, cases, shape, runs=20, warmup=3):
+    """The depthwise conv's case at ``shape``, timed: the kernel's forward +
+    fused backward against the plain conv's forward + autograd backward, and
+    against one library call, F.conv2d(groups=C) on the channels-last view,
+    forward + backward."""
+    import torch.nn.functional as F
 
-        def library_pass():
-            out = F.conv2d(xc, wc, padding=(kh // 2, 1), groups=c)
-            return torch.autograd.grad(out, (xc, wc), gc)
+    from rpeflow_tpu_torch.ops import dwconv
 
-        record("dwconv", (b, h, w, c, kh), time_ms(kernel_pass), time_ms(plain_pass),
-               max(errors(g_, w_)[0] for g_, w_ in zip(got[:2], want[:2])),
-               max_rel(got[2], want[2]), library_ms=time_ms(library_pass))
+    x, gout, taps, got, want = cases.dwconv(*shape)
+    kh, c = taps.shape[0], x.shape[-1]
+
+    def kernel_pass():
+        return dwconv.dwconv_fwd(x, taps), *dwconv.dwconv_bwd(x, gout, taps)
+
+    xl, tl = x.clone().requires_grad_(), taps.clone().requires_grad_()
+
+    def plain_pass():
+        out = dwconv.dwconv_plain(xl, tl)
+        return (out.detach(), *torch.autograd.grad(out, (xl, tl), gout))
+
+    xc = x.permute(0, 3, 1, 2).detach().requires_grad_()  # NCHW view, channels-last strides
+    wc = taps.permute(2, 0, 1).unsqueeze(1).contiguous().requires_grad_()
+    gc = gout.permute(0, 3, 1, 2)
+
+    def library_pass():
+        out = F.conv2d(xc, wc, padding=(kh // 2, 1), groups=c)
+        return torch.autograd.grad(out, (xc, wc), gc)
+
+    results.record("dwconv", shape, time_ms(kernel_pass, runs, warmup),
+                   time_ms(plain_pass, runs, warmup),
+                   max(errors(g_, w_)[0] for g_, w_ in zip(got[:2], want[:2])),
+                   max_rel(got[2], want[2]), library_ms=time_ms(library_pass, runs, warmup))
+
+
+def time_kernels(cases, results, shapes, runs, warmup):
+    """Each model kernel's case (:class:`KernelCases`) at each of its
+    ``shapes`` (kernel name -> shapes: ``fps`` (B, N, S), ``correlation2d``
+    (B, H, W, C, d), ``mdta_qkv`` (B, H, W, C, kh), ``gdfn`` (B, H, W, C),
+    ``dwconv`` (B, H, W, C, kh)), timed against its plain version (median
+    of ``runs`` after ``warmup``; the plain FPS, a loop of S steps, after
+    one) and recorded in ``results``. The correlation's forward is timed
+    alone, then its fused backward against the plain backward; the
+    depthwise conv as :func:`dwconv_timed` times it."""
+    from rpeflow_tpu_torch.ops import correlation, fps, gdfn, mdta
+
+    for b, n, s in shapes["fps"]:
+        xyz = cases.fps(b, n, s)
+        results.record("fps", (b, n, s),
+                       time_ms(lambda: fps.furthest_point_sampling(xyz, s), runs, warmup),
+                       time_ms(lambda: fps.furthest_point_sampling_plain(xyz, s), runs, 1),
+                       0.0, 0.0)
+    for b, h, w, c, d in shapes["correlation2d"]:
+        f1, f2, g_, (out, ref), (grads, refs) = cases.corr(b, h, w, c, d)
+        results.record("correlation2d", (b, h, w, c),
+                       time_ms(lambda: correlation.correlation2d_fwd(f1, f2, d), runs, warmup),
+                       time_ms(lambda: correlation.correlation2d_plain(f1, f2, d), runs, warmup),
+                       *errors(out, ref))
+        results.record("correlation2d_bwd", (b, h, w, c),
+                       time_ms(lambda: correlation.correlation2d_bwd(f1, f2, g_, d), runs, warmup),
+                       time_ms(lambda: correlation.correlation2d_bwd_plain(f1, f2, g_, d), runs,
+                               warmup),
+                       max(errors(a, r)[0] for a, r in zip(grads, refs)),
+                       max(max_rel(a, r) for a, r in zip(grads, refs)))
+    for shape in shapes["mdta_qkv"]:
+        args, outs, refs = cases.mdta(*shape)
+        results.record("mdta_qkv", shape, time_ms(lambda: mdta.mdta_qkv(*args), runs, warmup),
+                       time_ms(lambda: mdta.mdta_qkv_plain(*args), runs, warmup),
+                       errors(outs[0], refs[0])[0],
+                       max(errors(o, r)[1] for o, r in zip(outs[1:], refs[1:])))
+    for shape in shapes["gdfn"]:
+        args, out, ref = cases.gdfn(*shape)
+        results.record("gdfn", shape, time_ms(lambda: gdfn.gdfn(*args), runs, warmup),
+                       time_ms(lambda: gdfn.gdfn_plain(*args), runs, warmup), *errors(out, ref))
+    for shape in shapes["dwconv"]:
+        dwconv_timed(results, cases, shape, runs, warmup)
+
+
+def phase_kernels(dev):
+    """Each kernel vs its plain version at the flagship forward's and the
+    training step's shapes (timed, summed, with bounds), then at edge shapes
+    (ragged tiles, ties; checked only)."""
+    from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, gdfn
+
+    cases = KernelCases(dev, SEED)
+    results = KernelRecords()
+    # one FPS over both clouds stacked, [8, 8192, 3] -> 4096; the correlation
+    # on the flagship's five decode levels (the training step's too); the
+    # depthwise conv on the training step's shapes (dwconv_shapes)
+    shapes = {"fps": [(8, 8192, 4096)], "correlation2d": [(4, h, w, c, 4) for h, w, c, _ in LEVELS],
+              "mdta_qkv": [], "gdfn": [], "dwconv": dwconv_shapes()}
+    for h, w, c, n in LEVELS:
+        shapes["mdta_qkv"] += [(8, h, w, c, 3), (4, h, w, 81, 3), (4, h, w, 96, 3),
+                               (8, 1, n, c, 1), (4, 1, n, c, 1), (4, 1, n, 64, 1)]
+        shapes["gdfn"] += [(8, h, w, c), (4, h, w, 81), (4, h, w, 96)]
+    time_kernels(cases, results, shapes, runs=20, warmup=3)
 
     # edge shapes, checked and not timed: GDFN tiles cut by the image edge
     # (W = 15, 30, 60, 130, 160 against 30-column tiles; H not a multiple of
     # the 6- or 2-row tile) at every width class: B = 1 maps take 2-row
-    # tiles, the larger ones 6-row tiles up to C = 96 (a DSEC level-1 map
-    # is 120 x 160); FPS with duplicated points and exact ties, N not a
+    # tiles, the larger ones 6-row tiles up to C = 96 (120 x 160 is a
+    # quarter of DSEC's frame; the model resizes it, so its level 1 is
+    # 128 x 160, phase 13); FPS with duplicated points and exact ties, N not a
     # multiple of the 512 threads, n_samples = N
     gdfn_edges = [(b, h, w, c) for c in (32, 64, 81, 96, 128, 192)
                   for b, h, w in ((1, 7, 15), (1, 13, 30), (1, 9, 60), (4, 120, 160),
@@ -394,13 +465,13 @@ def phase_kernels(dev):
         rows = gdfn.tile_rows(*shape)
         if rows != (6 if shape[0] > 1 and shape[3] <= 96 else 2):
             raise AssertionError(f"gdfn {shape}: {rows}-row tiles")
-        gdfn_case(*shape)
+        cases.gdfn(*shape)
     fps_edges = ((2, 1000, 1000, True), (3, 3000, 1500, True), (4, 8191, 4096, True),
                  (2, 777, 777, False), (1, 5, 5, False), (1, 1, 1, False))
     for b, n, s, ties in fps_edges:
-        fps_case(b, n, s, ties)
+        cases.fps(b, n, s, ties)
     # MDTA: H and W not multiples of the 8-row tile and its 4/8/16 columns,
-    # one token, a DSEC level-1 map, point runs of N not a multiple of the
+    # one token, a 120 x 160 map, point runs of N not a multiple of the
     # run, at every width (C = 192 in two Gram slices); then many tiles per
     # batch element, and a batch of more blocks than the card holds at once
     mdta_edges = [(b, h, w, c, kh) for c in (32, 64, 81, 96, 128, 192)
@@ -408,20 +479,20 @@ def phase_kernels(dev):
                                       (4, 120, 160, 3), (2, 1, 777, 1), (1, 1, 1, 1))]
     mdta_edges += [(8, 144, 240, 32, 3), (300, 1, 16, 192, 1)]
     for shape in mdta_edges:
-        mdta_case(*shape)
+        cases.mdta(*shape)
     # depthwise conv: each edge shape under the default plans, and under
     # plans of 7-row strips and 5 backward blocks (strips cut by the map's
     # edge, many units a block)
     sms = _cuda.sm_count(dev)
     for shape in DWCONV_EDGE_SHAPES:
-        dwconv_case(*shape)
-        dwconv_case(*shape, plans=(dwconv.dwconv_plan(*shape, sms, rh=7),
+        cases.dwconv(*shape)
+        cases.dwconv(*shape, plans=(dwconv.dwconv_plan(*shape, sms, rh=7),
                                    dwconv.dwconv_plan(*shape, sms, backward=True, rh=7, nb=5)))
     # correlation: each edge shape under the default plans and under
     # CORR_EDGE_PLAN
     for shape in CORR_EDGE_SHAPES:
-        corr_case(*shape)
-        corr_case(*shape, plans=tuple(correlation.correlation_plan(
+        cases.corr(*shape)
+        cases.corr(*shape, plans=tuple(correlation.correlation_plan(
             *shape, backward=bwd, **CORR_EDGE_PLAN) for bwd in (False, True)))
     print(f"  edge shapes: gdfn {len(gdfn_edges)} (C 32/64/81/96/128/192 x 2- and 6-row "
           f"tiles cut by the edge), fps {len(fps_edges)} (ties, ragged N, n_samples = N), "
@@ -1311,6 +1382,285 @@ def phase_bench():
               f"{a['mfu']:.5f} | {b['mfu']:.5f}", flush=True)
 
 
+# Phase 13: DSEC, the real-data benchmark its users evaluate on
+# (conf/test/dsec.yaml, conf/train/dsec.yaml). (d) runs DSEC's 3:4 frames at
+# about phase 4's pixel count, 144x192, resized to 192x192 inside as 480x640
+# is to 512x640, with phase 4's 2048 points and n_samples.
+DSEC_REDUCED = dict(b=1, h=144, w=192, n=2048, event_ch=20)
+# conf/train/dsec.yaml's batch_size, the global batch of upstream's 4 GPUs;
+# (b) runs it on one card too, to see whether it fits
+DSEC_GLOBAL_BATCH = 12
+DSEC_SEED = SEED + 30
+
+
+def counted_runs(fn):
+    """``fn()`` 3 times, each timed on the host clock between two
+    synchronisations, the first with the launch counts set to 0 just before
+    it and read just after. Returns the ms, the results and the launches."""
+    from rpeflow_tpu_torch.ops import _cuda
+
+    ms, outs = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            _cuda.reset_launch_counts()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            launches = dict(_cuda.LAUNCHES)
+    return ms, outs, launches
+
+
+def warm_up_recording(fn):
+    """``fn()`` once under ``utils/flops.py : FlopCount``; returns the kernel
+    wrapper calls it recorded, ``(name, shape)`` each."""
+    from rpeflow_tpu_torch.utils.flops import FlopCount
+
+    with FlopCount() as count:
+        fn()
+    return count.calls
+
+
+def path_shapes(path, shapes, launches, expected):
+    """Check a path's launches against ``expected`` (the bench's counts), and
+    the wrapper calls recorded in a warm-up of the same path against them;
+    the distinct shapes by kernel (the depthwise conv's forward and backward
+    shapes under ``dwconv``)."""
+    bad = {k: (launches[k], n) for k, n in expected.items() if launches[k] != n}
+    calls = {}
+    for name, _ in shapes:
+        kern = "dwconv" if name == "dwconv_bwd" else name
+        calls[kern] = calls.get(kern, 0) + 1
+    if bad or any(calls.get(k, 0) != n for k, n in expected.items()):
+        raise AssertionError(f"DSEC {path}: launches (got, expected) {bad}; wrapper calls "
+                             f"recorded {calls}")
+    distinct = {}
+    for name, shape in shapes:
+        if name == "dwconv_bwd":
+            name, shape = "dwconv", shape[:5]
+        distinct.setdefault(name, dict.fromkeys(()))[shape] = None
+    return distinct
+
+
+def phase_dsec(dev):
+    """13: DSEC on the card. (a) the eval forward at DSEC_EVAL and (b) the
+    fine-tune step at DSEC_TRAIN (MI on, l1, Adam), then at
+    DSEC_GLOBAL_BATCH, each with its launches, ms and peak memory; (c)
+    every model kernel against its plain version at every distinct shape
+    (a) and (b) at DSEC_TRAIN gave it; (d) card against CPU at
+    DSEC_REDUCED, the forward with its metric sums and one l1 step."""
+    from rpeflow_tpu_torch.bench import EVAL_LAUNCHES
+    from rpeflow_tpu_torch.flagship import DSEC_EVAL, DSEC_TRAIN, make_dsec_batch
+    from rpeflow_tpu_torch.model import RPEFlow, seeded_init_
+    from rpeflow_tpu_torch.train.evaluator import MODEL_KEYS, SUM_KEYS, _metric_sums
+
+    report = {"card": timing.card_line(dev)}
+
+    # (a) the eval forward, conf/test/dsec.yaml's model at batch 3, 480x640
+    torch.cuda.empty_cache()
+    model = seeded_init_(RPEFlow(model_cfg("l1"), N_SAMPLES), DSEC_SEED).to(dev)
+    batch = make_dsec_batch(DSEC_SEED, device=dev, targets=True, **DSEC_EVAL)
+    inputs = {k: batch[k] for k in MODEL_KEYS}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        shapes = warm_up_recording(lambda: model(inputs))
+        ms, outs, launches = counted_runs(lambda: model(inputs))
+        out = outs[-1]
+        sums = {k: float(v) for k, v in _metric_sums(out, batch, False).items()}
+    eval_shapes = path_shapes("eval forward", shapes, launches, EVAL_LAUNCHES)
+    b, h, w, n = (DSEC_EVAL[k] for k in "bhwn")
+    if tuple(out["flow_2d"].shape) != (b, h, w, 2) or tuple(out["flow_3d"].shape) != (b, n, 3):
+        raise AssertionError(f"DSEC output shapes {[tuple(t.shape) for t in out.values()]}")
+    if not all(torch.isfinite(t).all() for t in out.values()):
+        raise AssertionError("DSEC forward: flows not finite")
+    valid = float(batch["flow_2d"][..., 2].sum())
+    if (tuple(sums) != SUM_KEYS or not all(np.isfinite(v) for v in sums.values())
+            or sums["2d/counts"] != valid or sums["3d/counts"] != b * n):
+        raise AssertionError(f"DSEC metric sums {sums}; {valid} valid pixels, {b * n} points")
+    report["eval"] = {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "launches": {k: launches[k] for k in EVAL_LAUNCHES}}
+    print(f"  (a) DSEC eval forward, batch {b}, {h}x{w}, {n} + {n} points: launches "
+          f"{report['eval']['launches']}; ms {[round(t, 2) for t in ms]}; peak device memory "
+          f"{report['eval']['peak_gib']:.2f} GiB; outputs finite; metric sums (sparse 2-D "
+          f"ground truth, {valid:.0f} of {b * h * w} pixels valid, no occlusion split) {sums}",
+          flush=True)
+    del model, batch, inputs, outs, out
+
+    # (b) the fine-tune step, conf/train/dsec.yaml's model and Adam, MI on, at
+    # the per-GPU batch, then at upstream's global batch on this one card
+    report["train"], train_shapes = dsec_steps(dev, DSEC_TRAIN)
+    report["train_global_batch"], _ = dsec_steps(dev, dict(DSEC_TRAIN, b=DSEC_GLOBAL_BATCH))
+
+    # (c) each kernel against its plain version at every distinct DSEC shape
+    torch.cuda.empty_cache()
+    report["kernels"] = phase_dsec_kernels(dev, eval_shapes, train_shapes)
+
+    # (d) card against CPU at DSEC_REDUCED
+    report["card_vs_cpu"] = dsec_card_vs_cpu(dev)
+    print(json.dumps({"dsec": report}), flush=True)
+
+
+def dsec_steps(dev, shape):
+    """13(b): the DSEC fine-tune step (l1, MI on, Adam) at ``shape``: 1
+    warm-up, its kernel wrapper calls recorded, and 3 timed steps, the
+    first counted; launches, finite losses, parameters moved, peak memory.
+    Returns the report entry and the distinct shapes by kernel."""
+    from rpeflow_tpu_torch.bench import TRAIN_LAUNCHES
+    from rpeflow_tpu_torch.flagship import dsec_training_cfg, make_dsec_batch
+    from rpeflow_tpu_torch.model import RPEFlow, seeded_init_
+    from rpeflow_tpu_torch.train.optim import optimizer_factory
+    from rpeflow_tpu_torch.train.state import train_step
+
+    torch.cuda.empty_cache()
+    model = seeded_init_(RPEFlow(model_cfg("l1"), N_SAMPLES), DSEC_SEED).to(dev).train()
+    opt = optimizer_factory(dsec_training_cfg(), model, steps_per_epoch=100)
+    gen = torch.Generator(device=dev).manual_seed(DSEC_SEED)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    batches = [make_dsec_batch(DSEC_SEED + 1 + i, device=dev, targets=True, **shape)
+               for i in range(4)]
+    calls = warm_up_recording(lambda: train_step(model, opt, batches[0], gen))
+    it = iter(batches[1:])
+    ms, summaries, launches = counted_runs(lambda: train_step(model, opt, next(it), gen))
+    b = shape["b"]
+    distinct = path_shapes(f"train step at batch {b}", calls, launches, TRAIN_LAUNCHES)
+    for i, sm in enumerate(summaries):
+        if not all(np.isfinite(v) for v in sm.values()) or sm["mi_loss"] == 0.0:
+            raise AssertionError(f"DSEC train step {i + 1} at batch {b}: {sm}")
+    after = dict(model.named_parameters())
+    moved = sum(not torch.equal(after[k].detach(), v) for k, v in before.items())
+    if moved < len(before) // 2:
+        raise AssertionError(f"DSEC train step at batch {b}: {moved} of {len(before)} "
+                             "parameters moved")
+    entry = {"b": b, "ms": ms, "samples_per_s": [1e3 * b / t for t in ms],
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "launches": {k: launches[k] for k in TRAIN_LAUNCHES}}
+    print(f"  (b) DSEC fine-tune step (l1, MI on, Adam 1e-4), batch {b}, {shape['h']}x"
+          f"{shape['w']}: launches {entry['launches']}; ms/step {[round(t, 2) for t in ms]} "
+          f"(samples/s {[round(r, 2) for r in entry['samples_per_s']]}); peak device memory "
+          f"{entry['peak_gib']:.2f} GiB; losses {[round(sm['loss'], 4) for sm in summaries]}; "
+          f"{moved} of {len(before)} parameters moved", flush=True)
+    del model, opt, batches, before, after
+    return entry, distinct
+
+
+def phase_dsec_kernels(dev, *paths):
+    """13(c): each model kernel against its plain version (phase 3's cases
+    and tolerances, :func:`time_kernels`) at every distinct shape of
+    ``paths`` (kernel -> shapes), timed (median of 5 after 1 warm-up)."""
+    distinct = {}
+    for path in paths:
+        for name, shapes in path.items():
+            distinct.setdefault(name, dict.fromkeys(())).update(shapes)
+    distinct.pop("correlation2d_bwd", None)  # the forward's case runs the backward too
+    gdfn_shapes = dict.fromkeys(())
+    for b, h, w, c, hidden in distinct.pop("gdfn"):
+        if hidden != int(2.66 * c):
+            raise AssertionError(f"gdfn {(b, h, w, c)}: hidden {hidden}")
+        gdfn_shapes[(b, h, w, c)] = None
+    distinct["gdfn"] = gdfn_shapes
+    unknown = set(distinct) - {"fps", "correlation2d", "mdta_qkv", "gdfn", "dwconv"}
+    if unknown:
+        raise AssertionError(f"DSEC shapes of kernels with no case: {sorted(unknown)}")
+    results = KernelRecords()
+    time_kernels(KernelCases(dev, DSEC_SEED), results, distinct, runs=5, warmup=1)
+    for name, r in results.items():
+        print(f"  (c) {name:17s} {r['shapes']:3d} DSEC shapes: kernel {r['ms']:9.4f} ms, plain "
+              f"{r['plain_ms']:9.4f} ms, bound {r['bound_ms']:8.4f} ms, library "
+              f"{r['library_ms']} ms, max|d| {r['max_abs_err']:.3e} (sums over the shapes)",
+              flush=True)
+    return dict(results)
+
+
+def dsec_card_vs_cpu(dev):
+    """13(d): the DSEC model on the card and on the CPU at DSEC_REDUCED.
+    The forward under phase 4's tolerance model, and its metric sums
+    (with_occ=False): the counts equal, each EPE sum within the mean |d| of
+    the flows (a bound by the triangle inequality), each threshold count
+    within the number of elements whose reference EPE lies no further from
+    the threshold than their |d| (the only ones that can cross it). Then
+    one l1 step with the sparse masks (MI off) under phase 7's bounds, the
+    CPU replaying the card's discrete choices."""
+    from rpeflow_tpu_torch.flagship import dsec_training_cfg, make_dsec_batch
+    from rpeflow_tpu_torch.model import RPEFlow, seeded_init_
+    from rpeflow_tpu_torch.train.evaluator import MODEL_KEYS, _metric_sums
+    from rpeflow_tpu_torch.train.optim import optimizer_factory
+    from rpeflow_tpu_torch.train.state import train_step
+
+    init = seeded_init_(RPEFlow(model_cfg("l1"), REDUCED_SAMPLES), DSEC_SEED + 10)
+    batch = make_dsec_batch(DSEC_SEED + 10, device="cpu", targets=True, **DSEC_REDUCED)
+    runs = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        model = copy.deepcopy(init).to(device)
+        tb = {k: t.to(device) for k, t in batch.items()}
+        with torch.inference_mode():
+            out = model({k: tb[k] for k in MODEL_KEYS})
+            runs[name] = ({k: v.cpu().double() for k, v in out.items()},
+                          {k: float(v) for k, v in _metric_sums(out, tb, False).items()})
+    (out, sums), (ref, ref_sums) = runs["card"], runs["cpu"]
+    bad, result = [], {}
+    epe = {}
+    for key, dim in (("flow_2d", 2), ("flow_3d", 3)):
+        o, r = out[key], ref[key]
+        d = (o - r).abs()
+        frac = float((d <= 2e-2 + 1e-3 * r.abs()).double().mean())
+        result[key] = {"within": frac, "mean_abs": float(d.mean()), "max_abs": float(d.max())}
+        if not torch.isfinite(o).all() or frac < 0.995 or float(d.mean()) >= 2e-2:
+            bad.append(key)
+        target = batch[key].double()
+        mask = target[..., dim] > 0
+        epe[key] = (torch.linalg.norm(r - target[..., :dim], dim=-1)[mask],
+                    torch.linalg.norm(o - r, dim=-1)[mask])
+    for prefix, key, thresholds in (("2d", "flow_2d", {"1px": 1.0}),
+                                    ("3d", "flow_3d", {"5cm": 0.05, "10cm": 0.1})):
+        e_ref, shift = epe[key]
+        if sums[f"{prefix}/counts"] != ref_sums[f"{prefix}/counts"]:
+            bad.append(f"{prefix}/counts")
+        gap = abs(sums[f"{prefix}/EPE{prefix}"] - ref_sums[f"{prefix}/EPE{prefix}"])
+        if gap > float(shift.sum()) * (1 + 1e-5) + 1e-3:
+            bad.append(f"{prefix}/EPE{prefix}")
+        for name, thr in thresholds.items():
+            near = int(((e_ref - thr).abs() <= shift + 1e-6).sum())
+            if abs(sums[f"{prefix}/{name}"] - ref_sums[f"{prefix}/{name}"]) > near:
+                bad.append(f"{prefix}/{name}")
+    # Fl: EPE > 3 px and EPE > 5% of the target's magnitude
+    e_ref, shift = epe["flow_2d"]
+    mask = batch["flow_2d"][..., 2] > 0
+    mag = torch.linalg.norm(batch["flow_2d"][..., :2].double(), dim=-1)[mask]
+    near = int((((e_ref - 3.0).abs() <= shift + 1e-6)
+                | ((e_ref - 0.05 * mag).abs() <= shift + 1e-6)).sum())
+    if abs(sums["2d/Fl"] - ref_sums["2d/Fl"]) > near:
+        bad.append("2d/Fl")
+    result["metric_sums"] = {"card": sums, "cpu": ref_sums}
+    print(f"  (d) DSEC forward card vs CPU at batch 1, {DSEC_REDUCED['h']}x{DSEC_REDUCED['w']}, "
+          f"{DSEC_REDUCED['n']} points: {result}", flush=True)
+
+    zero_grad = pre_norm_biases(init)
+    tape, records = [], {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        model = copy.deepcopy(init).to(device).train()
+        opt = optimizer_factory(dsec_training_cfg(), model, steps_per_epoch=100)
+        with shared_choices(tape, replay=name == "cpu") as counts:
+            summary = train_step(model, opt, {k: t.to(device) for k, t in batch.items()}, None,
+                                 compute_mi=False)
+        records[name] = step_record(model, summary)
+    breaches, worst = step_breaches(records["card"], records["cpu"], zero_grad)
+    breaches += [(f"replayed {k}", d, n) for k, (d, n) in counts.items()
+                 if not 0 < n or d > REPLAY_BOUND[k] * n]
+    result["step"] = {"loss": [records[k][0]["loss"] for k in ("card", "cpu")],
+                      "worst_gradient_share": worst, "replayed": counts}
+    print(f"  (d) DSEC l1 step card vs CPU (sparse 2-D masks, MI off): loss "
+          f"{records['card'][0]['loss']:.6f} vs {records['cpu'][0]['loss']:.6f}; worst gradient "
+          f"at {worst:.3f} of its bound; the CPU's own choices differing from the card's "
+          f"(replayed): {counts}", flush=True)
+    if bad or breaches:
+        raise AssertionError(f"DSEC card vs CPU outside the bounds: forward {bad}, step "
+                             f"{breaches[:8]}")
+    return result
+
+
 T0 = time.perf_counter()
 
 
@@ -1366,6 +1716,9 @@ def main():
     phase("[12] the bench (python -m rpeflow_tpu_torch.bench --workload all), twice, each in a "
           "fresh process")
     phase_bench()
+    phase("[13] DSEC: eval forward (batch 3, 480x640, 8192 + 8192 points) and fine-tune step "
+          "(l1, MI on; batch 3, then 12), each kernel at the DSEC shapes, card vs CPU at 144x192")
+    phase_dsec(dev)
 
     kernels = []
     for name, (src, rep) in SOURCES.items():

@@ -4,7 +4,7 @@
 Sampling is written out with gathers in pixel space, as in the JAX package,
 so both padding modes match it term for term: ``zeros`` takes each tap's
 validity from the unclamped coordinates, ``border`` clamps the coordinates
-first.
+first. A NaN position samples NaN, as there.
 """
 
 from __future__ import annotations
@@ -37,6 +37,11 @@ def grid_sample_2d(feat: torch.Tensor, xy: torch.Tensor,
     y0 = torch.floor(y)
     wx = (x - x0)[..., None].to(feat.dtype)
     wy = (y - y0)[..., None].to(feat.dtype)
+    # a NaN position (a non-finite flow) gathers pixel 0 with NaN weights, so
+    # its output is NaN, as in the JAX package, not an index out of range
+    inf = float("inf")
+    x0 = x0.nan_to_num(0.0, inf, -inf)
+    y0 = y0.nan_to_num(0.0, inf, -inf)
     flat_feat = feat.reshape(b, h * w, c)
     rows = torch.arange(b, device=feat.device)[:, None]
 

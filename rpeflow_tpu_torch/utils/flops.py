@@ -51,13 +51,16 @@ def _conv_backward_flop(grad_out_shape, x_shape, w_shape, _bias, _stride, _paddi
 class FlopCount:
     """Context manager: :attr:`total` is the FLOPs run inside it (the
     module docstring says what counts); :attr:`kernels` the kernel wrappers'
-    part by name."""
+    part by name; :attr:`calls` each kernel wrapper call's name and shape,
+    in call order (``chip_smoke.py`` holds each kernel to its plain version
+    at the shapes a path gave it)."""
 
     def __init__(self):
         self.mode = FlopCounterMode(
             display=False,
             custom_mapping={torch.ops.aten.convolution_backward: _conv_backward_flop})
         self.kernels: dict[str, float] = {}
+        self.calls: list[tuple[str, tuple]] = []
         self._inside = 0      # depth of kernel wrapper calls
         self._excluded = 0    # aten FLOPs run inside kernel wrapper calls
 
@@ -79,6 +82,7 @@ class FlopCount:
         return float(self.mode.get_total_flops() - self._excluded + sum(self.kernels.values()))
 
     def _kernel_call(self, name, shape, fn, args, kwargs):
+        self.calls.append((name, tuple(shape)))
         if self._inside:  # a wrapper inside a wrapper: the outer one's formula covers it
             return fn(*args, **kwargs)
         before = self.mode.get_total_flops()

@@ -1,8 +1,11 @@
 """One training step of the port against the JAX package's ``make_train_step``.
 
 Tiny model of tests/test_torch_model.py (64x64, 64 points, n_samples
-(32, 16), k=8), batch 2, l2 losses, MultiStep Adam with weight decay, MI
-off so both steps are deterministic, weights ``fill_variables`` seeds 1-5.
+(32, 16), k=8), batch 2, sparse masks (a tenth of the 2-D targets and a
+fifth of the 3-D ones invalid), MultiStep Adam with weight decay, MI off
+so both steps are deterministic: l2 losses with weights ``fill_variables``
+seeds 1-5, and the l1 losses of the DSEC and EKubric fine-tunes
+(conf/train/{dsec,ekubric}.yaml) with seed 1.
 Bounds (those of tests/test_segmented_train.py, where two JAX steps are
 held to each other): loss rtol 1e-4; grad_norm rtol 2e-3; per-leaf gradients
 ``|d| <= 2e-3 * max(|g|max, 1) + 1e-4`` (gradients, not post-Adam
@@ -51,12 +54,15 @@ from rpeflow_tpu_torch.train.state import train_step
 from torch_port_utils import fill_variables, make_inputs, small_cfg_dict
 
 N_SAMPLES = (32, 16)
-LOSS = {"level_weights": [8, 4, 2, 1, 0.5], "order": "l2"}
+LEVEL_WEIGHTS = [8, 4, 2, 1, 0.5]
 TRAINING = {"max_epochs": 10, "optimizer": "adam",
             "lr": {"scheduler": "MultiStepLR", "init_value": 1e-4, "decay_rate": 0.5,
                    "decay_milestones": [5]},
             "weight_decay": 1e-6, "bias_decay": 0.0}
 SEEDS = (1, 2, 3, 4, 5)
+#: (loss order, weight seed) of each step compared
+STEP_CASES = [pytest.param(("l2", s), id=str(s)) for s in SEEDS] + [
+    pytest.param(("l1", 1), id="l1-sparse-1")]
 # share of JAX's own activation signs that may differ from the port's
 SIGN_FLIP_BOUND = 1e-5
 
@@ -68,8 +74,9 @@ def _batch():
     return batch
 
 
-def _cfg():
-    return ConfigNode(dict(small_cfg_dict(), loss2d=LOSS, loss3d=LOSS))
+def _cfg(order="l2"):
+    loss = {"level_weights": LEVEL_WEIGHTS, "order": order}
+    return ConfigNode(dict(small_cfg_dict(), loss2d=loss, loss3d=loss))
 
 
 def _variables(jax_model, batch, seed):
@@ -155,21 +162,30 @@ def _jax_step(jax_model, tx, flips, mesh=None):
 
 @pytest.fixture(scope="module")
 def setup():
-    cfg, batch = _cfg(), _batch()
-    jax_model = JaxRPEFlow(cfgs=cfg, n_samples_list=N_SAMPLES)
-    tcfg = ConfigNode(TRAINING)
-    tx, _ = jax_optimizer_factory(tcfg, _variables(jax_model, batch, 1)["params"],
-                                  steps_per_epoch=10)
-    flips = {}
-    return cfg, batch, jax_model, tcfg, tx, _jax_step(jax_model, tx, flips), flips
+    """The JAX side for a loss order, built (and its step compiled) once."""
+    batch, built = _batch(), {}
+
+    def get(order):
+        if order not in built:
+            cfg = _cfg(order)
+            jax_model = JaxRPEFlow(cfgs=cfg, n_samples_list=N_SAMPLES)
+            tcfg = ConfigNode(TRAINING)
+            tx, _ = jax_optimizer_factory(tcfg, _variables(jax_model, batch, 1)["params"],
+                                          steps_per_epoch=10)
+            flips = {}
+            built[order] = (cfg, batch, jax_model, tcfg, tx, _jax_step(jax_model, tx, flips),
+                            flips)
+        return built[order]
+    return get
 
 
-@pytest.fixture(scope="module", params=SEEDS)
+@pytest.fixture(scope="module", params=STEP_CASES)
 def steps(request, setup):
     """``(JAX summary, port summary, JAX gradients and updated batch stats
     under the port's state_dict names, port model after its step)``."""
-    cfg, batch, jax_model, tcfg, tx, jax_step, flips = setup
-    variables = _variables(jax_model, batch, request.param)
+    order, seed = request.param
+    cfg, batch, jax_model, tcfg, tx, jax_step, flips = setup(order)
+    variables = _variables(jax_model, batch, seed)
 
     model = _port_model(cfg, variables)
     opt = optimizer_factory(tcfg, model, steps_per_epoch=10)
@@ -185,7 +201,7 @@ def steps(request, setup):
     n_flips = sum(flips.values())
     assert sorted(flips) == list(range(len(signs))), (len(flips), len(signs))
     assert n_flips <= SIGN_FLIP_BOUND * n_signs, (n_flips, n_signs)
-    print(f"seed {request.param}: JAX's own signs differ from the port's at {n_flips} "
+    print(f"{order}, seed {seed}: JAX's own signs differ from the port's at {n_flips} "
           f"of {n_signs}")
     ref_grads = ref["grad_norm"]["grads"]
     ref = dict(ref, grad_norm=ref["grad_norm"]["norm"])

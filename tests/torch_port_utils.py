@@ -117,7 +117,7 @@ MDTA_FLAGSHIP_SHAPES = [s for h, w, c, n in _LEVELS for s in (
     (8, 1, n, c, 1), (4, 1, n, c, 1), (4, 1, n, 64, 1))]
 #: MDTA edge shapes at every width the model uses: maps whose H and W are
 #: not multiples of the 8-row tiles or their 4/8/16 columns, one token, a
-#: DSEC level-1 map (120 x 160), point runs of N not a multiple of the run;
+#: 120 x 160 map (a quarter of DSEC's frame), point runs of N not a multiple of the run;
 #: then a map of many tiles per batch element, and a batch of more blocks
 #: than the card holds at once
 MDTA_EDGE_SHAPES = [(b, h, w, c, kh) for c in (32, 64, 81, 96, 128, 192)
