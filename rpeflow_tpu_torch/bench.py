@@ -107,10 +107,11 @@ class Runner:
     """One iteration of a workload: the eval forward in ``inference_mode``
     (returns the outputs) or one train step with MI on (returns its
     summary). The model (``cfg``, ``samples`` points a decode level) is
-    ``seeded_init_(seed)``'s; a step's optimizer is pretrain.yaml's Adam and
-    its MI noise comes from a generator seeded with ``seed``."""
+    ``seeded_init_(seed)``'s; a step's optimizer is ``training``'s Adam
+    (pretrain.yaml's by default) and its MI noise comes from a generator
+    seeded with ``seed``."""
 
-    def __init__(self, train, dev, cfg, samples, seed):
+    def __init__(self, train, dev, cfg, samples, seed, training=None):
         from .model import RPEFlow, seeded_init_
 
         self.train = train
@@ -119,7 +120,8 @@ class Runner:
             from .train.optim import optimizer_factory
 
             self.model.train()
-            self.opt = optimizer_factory(training_cfg(), self.model, steps_per_epoch=100)
+            self.opt = optimizer_factory(training or training_cfg(), self.model,
+                                         steps_per_epoch=100)
             self.gen = torch.Generator(device=dev).manual_seed(seed)
         else:
             self.model.eval()

@@ -36,6 +36,7 @@ from ..ops.geometry import CameraInfo, project_feat_with_nn_corr, project_pc2ima
 from ..ops.interp import backwarp_3d, convex_upsample, knn_interpolation, resize_bilinear_ac
 from ..ops.knn import k_nearest_neighbor
 from ..ops.sample import backwarp_2d, grid_sample_2d, mesh_grid
+from ..utils.profile import span
 
 
 def _no_mi(like: torch.Tensor) -> torch.Tensor:
@@ -369,25 +370,31 @@ class RPEFlowCore(nn.Module):
                camera: CameraInfo, train: bool = False, compute_mi: bool = False,
                generator: Optional[torch.Generator] = None):
         """Levels ``len(xyzs1)-1 .. 1``; returns (flows_2d, flows_3d, mi_loss),
-        flows fine -> coarse, ``mi_loss = sum (10 mi2d + mi3d) 0.85^(level-1)``."""
-        flows_2d: List[torch.Tensor] = []
-        flows_3d: List[torch.Tensor] = []
-        up_flow_cache: Dict[int, torch.Tensor] = {}
-        mi_loss = torch.zeros((), device=feats1_2d[-1].device)
-        prev = None
-        for level in range(len(xyzs1) - 1, 0, -1):
-            out = self.decode_level(
-                level, xyzs1[level], xyzs2[level], feats1_2d[level], feats2_2d[level],
-                feats1_3d[level], feats2_3d[level], efeats_2d[level],
-                xyzs1[level + 1] if prev is not None else None, camera, prev=prev,
-                train=train, compute_mi=compute_mi, generator=generator)
-            if prev is not None:
-                up_flow_cache[level] = out["last_flow_3d"]
-            flows_2d.append(out["flow_2d"])
-            flows_3d.append(out["flow_3d"])
-            if compute_mi:
-                mi_loss = mi_loss + (10.0 * out["mi2d"] + out["mi3d"]) * (0.85 ** (level - 1))
-            prev = out
-        flows_2d, flows_3d = self.decode_post(flows_2d, flows_3d, prev["flow_feat_2d"], xyzs1,
-                                              up_flow_cache)
-        return flows_2d, flows_3d, mi_loss
+        flows fine -> coarse, ``mi_loss = sum (10 mi2d + mi3d) 0.85^(level-1)``.
+        Profiler spans: ``rpeflow.forward.decode`` around it, ``.level<k>``
+        around each level's :meth:`decode_level`, ``.post`` around
+        :meth:`decode_post`."""
+        with span("rpeflow.forward.decode"):
+            flows_2d: List[torch.Tensor] = []
+            flows_3d: List[torch.Tensor] = []
+            up_flow_cache: Dict[int, torch.Tensor] = {}
+            mi_loss = torch.zeros((), device=feats1_2d[-1].device)
+            prev = None
+            for level in range(len(xyzs1) - 1, 0, -1):
+                with span(f"rpeflow.forward.decode.level{level}"):
+                    out = self.decode_level(
+                        level, xyzs1[level], xyzs2[level], feats1_2d[level], feats2_2d[level],
+                        feats1_3d[level], feats2_3d[level], efeats_2d[level],
+                        xyzs1[level + 1] if prev is not None else None, camera, prev=prev,
+                        train=train, compute_mi=compute_mi, generator=generator)
+                if prev is not None:
+                    up_flow_cache[level] = out["last_flow_3d"]
+                flows_2d.append(out["flow_2d"])
+                flows_3d.append(out["flow_3d"])
+                if compute_mi:
+                    mi_loss = mi_loss + (10.0 * out["mi2d"] + out["mi3d"]) * (0.85 ** (level - 1))
+                prev = out
+            with span("rpeflow.forward.decode.post"):
+                flows_2d, flows_3d = self.decode_post(flows_2d, flows_3d, prev["flow_feat_2d"],
+                                                      xyzs1, up_flow_cache)
+            return flows_2d, flows_3d, mi_loss

@@ -23,6 +23,7 @@ from ..nn.losses import supervised_loss_2d, supervised_loss_3d
 from ..nn.pyramid3d import build_pc_pyramid
 from ..ops.geometry import CameraInfo, parallel2perspect, perspect2parallel
 from ..ops.interp import resize_flow2d, resize_to_64x
+from ..utils.profile import span
 from .core import RPEFlowCore
 
 DEFAULT_N_SAMPLES = (4096, 2048, 1024, 512, 256)
@@ -74,54 +75,63 @@ class RPEFlow(nn.Module):
         """Returns ``{"flow_2d", "flow_3d"}``; with ``compute_loss`` (and
         targets in ``inputs``), ``(outputs, {"loss": loss, "scalar_summary":
         {...}})`` as the JAX model does. ``compute_mi`` adds the MI
-        regulariser, its noise drawn from ``generator``."""
-        train = self.training and not getattr(self.cfgs, "freeze_bn", False)
-        images = inputs["images"].float() / 255.0
-        pc1 = inputs["pcs"][..., :3].float()
-        pc2 = inputs["pcs"][..., 3:].float()
-        event_voxel = resize_to_64x(inputs["event_voxel"].float())
-        origin_h, origin_w = images.shape[1:3]
-        images = resize_to_64x(images)
-        image1, image2 = images[..., :3], images[..., 3:]
+        regulariser, its noise drawn from ``generator``. The forward runs in
+        the profiler span ``rpeflow.forward``, its stages in
+        ``rpeflow.forward.<stage>`` (:func:`..utils.profile.span`)."""
+        with span("rpeflow.forward"):
+            train = self.training and not getattr(self.cfgs, "freeze_bn", False)
+            images = inputs["images"].float() / 255.0
+            pc1 = inputs["pcs"][..., :3].float()
+            pc2 = inputs["pcs"][..., 3:].float()
+            event_voxel = resize_to_64x(inputs["event_voxel"].float())
+            origin_h, origin_w = images.shape[1:3]
+            images = resize_to_64x(images)
+            image1, image2 = images[..., :3], images[..., 3:]
 
-        persp, paral, decode_cam = self._cameras(inputs)
-        ids = self.cfgs.ids.enabled
-        if ids:
-            pc1 = perspect2parallel(pc1, persp, paral)
-            pc2 = perspect2parallel(pc2, persp, paral)
+            persp, paral, decode_cam = self._cameras(inputs)
+            ids = self.cfgs.ids.enabled
+            if ids:
+                pc1 = perspect2parallel(pc1, persp, paral)
+                pc2 = perspect2parallel(pc2, persp, paral)
 
-        core = self.pwc_fusion_core
-        xyzs1, xyzs2, indices1, _ = build_pc_pyramid(pc1, pc2, self.n_samples_list)
-        if train:
-            feats1_2d, feats1_3d = core.encode(image1, xyzs1)
-            feats2_2d, feats2_3d = core.encode(image2, xyzs2)
-        else:
-            feats1_2d, feats2_2d, feats1_3d, feats2_3d = core.encode_both(image1, image2,
-                                                                          xyzs1, xyzs2)
-        efeats_2d = core.encode_event(event_voxel)
-        flows_2d, flows_3d, mi_loss = core.decode(
-            xyzs1, xyzs2, feats1_2d, feats2_2d, feats1_3d, feats2_3d, efeats_2d, decode_cam,
-            train=train, compute_mi=compute_mi, generator=generator)
-        if ids:
-            flows_3d = [parallel2perspect(xyz1 + f, persp, paral)
-                        - parallel2perspect(xyz1, persp, paral)
-                        for xyz1, f in zip(xyzs1, flows_3d)]
-        outputs = {"flow_2d": resize_flow2d(flows_2d[0], origin_h, origin_w),
-                   "flow_3d": flows_3d[0]}
-        if not compute_loss or "flow_2d" not in inputs or "flow_3d" not in inputs:
-            return outputs
+            core = self.pwc_fusion_core
+            with span("rpeflow.forward.pyramid3d"):
+                xyzs1, xyzs2, indices1, _ = build_pc_pyramid(pc1, pc2, self.n_samples_list)
+            with span("rpeflow.forward.encode"):
+                if train:
+                    feats1_2d, feats1_3d = core.encode(image1, xyzs1)
+                    feats2_2d, feats2_3d = core.encode(image2, xyzs2)
+                else:
+                    feats1_2d, feats2_2d, feats1_3d, feats2_3d = core.encode_both(
+                        image1, image2, xyzs1, xyzs2)
+            with span("rpeflow.forward.encode_event"):
+                efeats_2d = core.encode_event(event_voxel)
+            flows_2d, flows_3d, mi_loss = core.decode(
+                xyzs1, xyzs2, feats1_2d, feats2_2d, feats1_3d, feats2_3d, efeats_2d, decode_cam,
+                train=train, compute_mi=compute_mi, generator=generator)
+            with span("rpeflow.forward.outputs"):
+                if ids:
+                    flows_3d = [parallel2perspect(xyz1 + f, persp, paral)
+                                - parallel2perspect(xyz1, persp, paral)
+                                for xyz1, f in zip(xyzs1, flows_3d)]
+                outputs = {"flow_2d": resize_flow2d(flows_2d[0], origin_h, origin_w),
+                           "flow_3d": flows_3d[0]}
+            if not compute_loss or "flow_2d" not in inputs or "flow_3d" not in inputs:
+                return outputs
 
-        target_2d = inputs["flow_2d"].float()
-        target_3d = inputs["flow_3d"].float()
-        loss_2d = supervised_loss_2d(flows_2d, target_2d, self.cfgs.loss2d)
-        loss_3d = supervised_loss_3d(flows_3d, target_3d, self.cfgs.loss3d, indices1) * 10.0
-        final_mi_loss = mi_loss * 0.01
-        loss = loss_2d + loss_3d + final_mi_loss
-        summary = {"loss": loss.detach(), "loss_2d": loss_2d.detach(),
-                   "loss_3d": loss_3d.detach(), "mi_loss": final_mi_loss.detach()}
-        summary.update(flow_metrics(outputs["flow_2d"], outputs["flow_3d"], target_2d,
-                                    target_3d))
-        return outputs, {"loss": loss, "scalar_summary": summary}
+            with span("rpeflow.forward.loss"):
+                target_2d = inputs["flow_2d"].float()
+                target_3d = inputs["flow_3d"].float()
+                loss_2d = supervised_loss_2d(flows_2d, target_2d, self.cfgs.loss2d)
+                loss_3d = supervised_loss_3d(flows_3d, target_3d, self.cfgs.loss3d,
+                                             indices1) * 10.0
+                final_mi_loss = mi_loss * 0.01
+                loss = loss_2d + loss_3d + final_mi_loss
+                summary = {"loss": loss.detach(), "loss_2d": loss_2d.detach(),
+                           "loss_3d": loss_3d.detach(), "mi_loss": final_mi_loss.detach()}
+                summary.update(flow_metrics(outputs["flow_2d"], outputs["flow_3d"], target_2d,
+                                            target_3d))
+            return outputs, {"loss": loss, "scalar_summary": summary}
 
 
 def seeded_init_(model: nn.Module, seed: int) -> nn.Module:

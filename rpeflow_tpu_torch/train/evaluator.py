@@ -24,6 +24,7 @@ import torch
 
 from ..compat import load_checkpoint
 from ..parallel.mesh import all_reduce_, maybe_initialize_distributed, process_count, process_index
+from ..utils.profile import span
 from .precision import use_f32
 
 MODEL_KEYS = ("images", "pcs", "event_voxel", "intrinsics")
@@ -34,51 +35,53 @@ NOC_SUM_KEYS = ("3dnoc/counts", "3dnoc/EPE3d", "3dnoc/5cm", "3dnoc/10cm")
 
 
 def _metric_sums(outputs, batch, with_occ: bool) -> Dict[str, torch.Tensor]:
-    """Metric sums and counts for one batch (0-d tensors)."""
-    pred2d = outputs["flow_2d"].float()
-    pred3d = outputs["flow_3d"].float()
-    t2d = batch["flow_2d"].float()
-    t3d = batch["flow_3d"].float()
-    if t2d.shape[-1] > 2:
-        mask2d = t2d[..., 2] > 0
-        t2d = t2d[..., :2]
-    else:
-        mask2d = torch.ones(t2d.shape[:3], dtype=torch.bool, device=t2d.device)
-    if t3d.shape[-1] > 3:
-        mask3d = t3d[..., 3] > 0
-        t3d = t3d[..., :3]
-    else:
-        mask3d = torch.ones(t3d.shape[:2], dtype=torch.bool, device=t3d.device)
+    """Metric sums and counts for one batch (0-d tensors), in the profiler
+    span ``rpeflow.eval.metric_sums``."""
+    with span("rpeflow.eval.metric_sums"):
+        pred2d = outputs["flow_2d"].float()
+        pred3d = outputs["flow_3d"].float()
+        t2d = batch["flow_2d"].float()
+        t3d = batch["flow_3d"].float()
+        if t2d.shape[-1] > 2:
+            mask2d = t2d[..., 2] > 0
+            t2d = t2d[..., :2]
+        else:
+            mask2d = torch.ones(t2d.shape[:3], dtype=torch.bool, device=t2d.device)
+        if t3d.shape[-1] > 3:
+            mask3d = t3d[..., 3] > 0
+            t3d = t3d[..., :3]
+        else:
+            mask3d = torch.ones(t3d.shape[:2], dtype=torch.bool, device=t3d.device)
 
-    epe2d = torch.linalg.norm(pred2d - t2d, dim=-1)
-    epe3d = torch.linalg.norm(pred3d - t3d, dim=-1)
-    mask2d = mask2d & ~torch.isnan(epe2d)
-    mask3d = mask3d & ~torch.isnan(epe3d)
-    m2 = mask2d.float()
-    m3 = mask3d.float()
-    mag = torch.linalg.norm(t2d, dim=-1)
-    fl = ((epe2d > 3.0) & (epe2d / mag > 0.05)).float()
-    zero = torch.zeros((), device=epe2d.device)
-    out = {
-        "2d/counts": m2.sum(),
-        "2d/EPE2d": torch.where(mask2d, epe2d, zero).sum(),
-        "2d/1px": ((epe2d < 1.0) * m2).sum(),
-        "2d/Fl": (fl * m2).sum(),
-        "3d/counts": m3.sum(),
-        "3d/EPE3d": torch.where(mask3d, epe3d, zero).sum(),
-        "3d/5cm": ((epe3d < 0.05) * m3).sum(),
-        "3d/10cm": ((epe3d < 0.1) * m3).sum(),
-    }
-    if with_occ:
-        noc = (batch["occ_mask_3d"] == 0) & mask3d
-        mn = noc.float()
-        out.update({
-            "3dnoc/counts": mn.sum(),
-            "3dnoc/EPE3d": torch.where(noc, epe3d, zero).sum(),
-            "3dnoc/5cm": ((epe3d < 0.05) * mn).sum(),
-            "3dnoc/10cm": ((epe3d < 0.1) * mn).sum(),
-        })
-    return out
+        epe2d = torch.linalg.norm(pred2d - t2d, dim=-1)
+        epe3d = torch.linalg.norm(pred3d - t3d, dim=-1)
+        mask2d = mask2d & ~torch.isnan(epe2d)
+        mask3d = mask3d & ~torch.isnan(epe3d)
+        m2 = mask2d.float()
+        m3 = mask3d.float()
+        mag = torch.linalg.norm(t2d, dim=-1)
+        fl = ((epe2d > 3.0) & (epe2d / mag > 0.05)).float()
+        zero = torch.zeros((), device=epe2d.device)
+        out = {
+            "2d/counts": m2.sum(),
+            "2d/EPE2d": torch.where(mask2d, epe2d, zero).sum(),
+            "2d/1px": ((epe2d < 1.0) * m2).sum(),
+            "2d/Fl": (fl * m2).sum(),
+            "3d/counts": m3.sum(),
+            "3d/EPE3d": torch.where(mask3d, epe3d, zero).sum(),
+            "3d/5cm": ((epe3d < 0.05) * m3).sum(),
+            "3d/10cm": ((epe3d < 0.1) * m3).sum(),
+        }
+        if with_occ:
+            noc = (batch["occ_mask_3d"] == 0) & mask3d
+            mn = noc.float()
+            out.update({
+                "3dnoc/counts": mn.sum(),
+                "3dnoc/EPE3d": torch.where(noc, epe3d, zero).sum(),
+                "3dnoc/5cm": ((epe3d < 0.05) * mn).sum(),
+                "3dnoc/10cm": ((epe3d < 0.1) * mn).sum(),
+            })
+        return out
 
 
 def report(totals: Dict[str, float], times, with_occ: bool) -> Dict[str, float]:

@@ -11,6 +11,11 @@ Under data parallelism (:mod:`..parallel.mesh`) each rank runs its slice of
 the global batch; the gradients are averaged over the ranks before the norm
 and the update, and the summaries are the means over the ranks, so that
 every rank takes the step of one process on the global batch.
+
+A step opens the profiler spans ``rpeflow.train_step`` and, inside it,
+``.backward``, ``.update`` (the gradients' reduction and norm, the
+optimizer) and ``.read`` (the summary's reads, where the host waits for the
+step); the forward opens its own (:mod:`..model.rpeflow`).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from ..parallel.mesh import all_reduce_grads, mean_over_ranks
+from ..utils.profile import span
 from .optim import Optimizer
 
 
@@ -35,14 +41,18 @@ def train_step(model: nn.Module, optimizer: Optimizer, batch: Dict[str, torch.Te
                generator: Optional[torch.Generator], compute_mi: bool = True) -> Dict[str, float]:
     """One optimizer step on ``batch`` (tensors on the model's device); the
     model must be in training mode. ``generator`` feeds the MI noise."""
-    model.zero_grad(set_to_none=True)
-    _, aux = model(batch, compute_mi=compute_mi, compute_loss=True, generator=generator)
-    aux["loss"].backward()
-    all_reduce_grads(model)
-    summary = mean_over_ranks(aux["scalar_summary"], "train summary")
-    summary["grad_norm"] = grad_norm(model)
-    optimizer.step()
-    return {k: float(v) for k, v in summary.items()}
+    with span("rpeflow.train_step"):
+        model.zero_grad(set_to_none=True)
+        _, aux = model(batch, compute_mi=compute_mi, compute_loss=True, generator=generator)
+        with span("rpeflow.train_step.backward"):
+            aux["loss"].backward()
+        with span("rpeflow.train_step.update"):
+            all_reduce_grads(model)
+            summary = mean_over_ranks(aux["scalar_summary"], "train summary")
+            summary["grad_norm"] = grad_norm(model)
+            optimizer.step()
+        with span("rpeflow.train_step.read"):
+            return {k: float(v) for k, v in summary.items()}
 
 
 @torch.no_grad()

@@ -7,7 +7,8 @@ where ``tensorboardX`` imports, TensorBoard scalars ``train/<k>`` and
 ``train/lr`` at every step, ``val/<k>`` and the predicted-flow image
 ``val/flow_2d_pred`` of the first validation sample at every validation;
 ``log.profile_steps: [start, stop]`` records those steps of each epoch with
-``torch.profiler`` into ``<log.dir>/profile``. Data comes from the port's
+``torch.profiler`` into ``<log.dir>/profile``, the program's ``rpeflow.*``
+spans included (:func:`..utils.profile.span`). Data comes from the port's
 own host layer (``rpeflow_tpu_torch.data``, ``.factory``) when no batches
 are given; reading a dataset needs h5py. A caller without it passes the
 batch iterables itself (``train_batches``, ``val_batches``: each
@@ -42,6 +43,7 @@ from ..parallel.mesh import (
     process_index,
     replicate,
 )
+from ..utils.profile import record_spans
 from ..utils.visualization import flow_to_image
 from .checkpoint import load_weights, restore_checkpoint, save_checkpoint
 from .factory import dataset_factory, model_factory
@@ -203,7 +205,9 @@ class Trainer:
             if profile_steps and self.is_main and i == int(profile_steps[0]):
                 prof = self._profiler()
                 prof.start()
+                record_spans(True)
             if prof is not None and i == int(profile_steps[1]):
+                record_spans(False)
                 prof.stop()
                 prof = None
             t_data = time.time() - t_end
@@ -220,6 +224,7 @@ class Trainer:
                     self.summary_writer.add_scalar(f"train/{k}", v, step)
                 self.summary_writer.add_scalar("train/lr", lr, step)
         if prof is not None:  # the window reaches past the epoch's last step
+            record_spans(False)
             prof.stop()
 
     def _validation_batches(self):

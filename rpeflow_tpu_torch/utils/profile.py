@@ -20,12 +20,21 @@ keep the scopes paired, and those scopes are named ``module::<name>
 its autograd node (``backward: <node>``). On the CPU there are no device
 events: the same tables are made of the host's operators and their self
 time.
+
+:func:`span` is the program's own scope: the train step, the forward and
+the metric sums open ``rpeflow.<phase>`` spans with it, which a trace shows
+beside the module scopes while :func:`record_spans` is on (in
+:func:`capture`'s traces and the trainer's). :func:`analyse` treats them
+as scopes, not as operators; :func:`span_table` reads, per span, its wall
+time, the device's busy and idle time inside it and the device time of
+the work launched inside it.
 """
 
 from __future__ import annotations
 
 import bisect
 import collections
+import contextlib
 import itertools
 import re
 import threading
@@ -33,13 +42,16 @@ import time
 
 import torch
 from torch.autograd import DeviceType
+from torch.autograd import profiler as _profiler
 
 from ..ops import _cuda
 from .timing import sync
 
 RUN_RE = re.compile(r"run\d+")
 AUTOGRAD_NODE = "autograd::engine::evaluate_function: "
-SCOPES = ("module::", AUTOGRAD_NODE)
+#: the prefix of the program's own spans (:func:`span`)
+SPAN = "rpeflow."
+SCOPES = ("module::", AUTOGRAD_NODE, SPAN)
 RUNTIME_RE = re.compile(r"cu(da)?[A-Z]")
 #: the hand-written kernels (csrc/*.cu): __global__ function -> its wrapper's launch key
 HAND = {fn: key for kernels in _cuda.SOURCES.values() for fn, key in kernels.items()}
@@ -69,6 +81,35 @@ def category(name: str, op: str = "") -> str:
         if re.search(pattern, text):
             return cat
     return "other"
+
+
+_OFF = contextlib.nullcontext()
+_recording = False  # record_spans
+
+
+def record_spans(on: bool) -> None:
+    """Whether :func:`span` records in a ``torch.profiler`` trace. On in
+    the port's own traces (:func:`capture`, the trainer's
+    ``log.profile_steps``), whose readers take the spans for scopes; off
+    elsewhere, so that a reader that takes any named host span around an
+    idle gap for the operator running there reads the trace it read
+    before the spans."""
+    global _recording
+    _recording = on
+
+
+def span(name: str):
+    """A profiler span ``name`` (``rpeflow.<phase>``) around a ``with``
+    block: ``record_function(name)`` while a ``torch.profiler`` records
+    and :func:`record_spans` is on, so the span lands in the trace on the
+    clock of the device work; else a no-op context that costs a flag read
+    (an unused ``record_function`` still enters the dispatcher, about
+    10 us a call). Spans stay out of code that an activation checkpoint
+    re-runs, so the backward's recompute opens none on the autograd
+    thread."""
+    if _recording and _profiler._is_profiler_enabled:
+        return _profiler.record_function(name)
+    return _OFF
 
 
 class ModuleScopes:
@@ -162,14 +203,15 @@ def union_us(intervals) -> float:
 def capture(model, run, batches, dev):
     """Run ``run(batches[0])`` as a warm-up, then profile ``run`` on each
     further batch (a ``run<i>`` scope each, ending in a device sync) with
-    :class:`ModuleScopes` on ``model``; returns the profiler's raw (kineto)
-    events."""
+    :class:`ModuleScopes` on ``model`` and the program's spans on
+    (:func:`record_spans`); returns the profiler's raw (kineto) events."""
     run(batches[0])  # warm-up
     sync(dev)
     scopes = ModuleScopes(model)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
+    record_spans(True)
     try:
         with torch.profiler.profile(activities=activities) as prof:
             for i, bt in enumerate(batches[1:]):
@@ -177,18 +219,20 @@ def capture(model, run, batches, dev):
                     run(bt)
                     sync(dev)
     finally:
+        record_spans(False)
         scopes.remove()
     return prof.profiler.kineto_results.events()
 
 
-def analyse(events, on_card):
-    """Per run: category totals (ms), busy us and window us; over all runs:
-    (name, module, category) -> total us. On the card the work items are
-    the device events (kernels, memcpy, memset), each found its launch (the
-    runtime call) through its correlation id; on the CPU they are the host
-    operators with their self time."""
-    t0 = time.perf_counter()
-    windows, spans, items, host_ops = [], collections.defaultdict(list), [], []
+def _read(events, on_card):
+    """The runs' windows (sorted), each host thread's :class:`Scopes`, the
+    program's spans ``(start, end, name)`` and the work items ``(name,
+    start, duration, launching thread, launch time, operator)``, in us. On
+    the card the work items are the device events (kernels, memcpy,
+    memset), each found its launch (the runtime call) through its
+    correlation id; on the CPU they are the host operators with their self
+    time."""
+    windows, spans, program, items, host_ops = [], collections.defaultdict(list), [], [], []
     ops, runtime = {}, {}  # operators by id; runtime API calls by their CUDA correlation id
     for e in events:
         name = e.name()
@@ -208,13 +252,14 @@ def analyse(events, on_card):
                 windows.append((start, end))
             elif name.startswith(SCOPES):
                 spans[thread].append((start, -end, name))
+                if name.startswith(SPAN):
+                    program.append((start, end, name))
             elif not on_card:
                 host_ops.append((thread, start, end, name))
     windows.sort()
     scopes = {thread: Scopes(sp) for thread, sp in spans.items()}
-    if on_card:  # (name, device start, duration, launching thread, launch time, operator):
-        # the launch is the runtime call with the kernel's correlation id; the
-        # operator, where there is one, is the one the profiler links it to
+    if on_card:  # the launch is the runtime call with the kernel's correlation
+        # id; the operator, where there is one, is the one the profiler links it to
         work = []
         for name, start, dur, corr, linked in items:
             thread, t, op = ops.get(linked, (None, start, ""))
@@ -233,13 +278,25 @@ def analyse(events, on_card):
                     stack[-1][3] -= end - start
                 stack.append([name, start, end, end - start])
             work += [(n, a, d, thread, a, n) for n, a, _, d in stack]
+    return windows, scopes, sorted(program), work
+
+
+def _run_of(windows, t):
+    """The run whose window holds ``t`` (the device clock may be offset
+    from the host's, so a run owns what was launched inside it), or None."""
+    return next((i for i, (a, b) in enumerate(windows) if a <= t <= b), None)
+
+
+def analyse(events, on_card):
+    """Per run: category totals (ms), busy us and window us; over all runs:
+    (name, module, category) -> total us (the work items of :func:`_read`)."""
+    t0 = time.perf_counter()
+    windows, scopes, _, work = _read(events, on_card)
     per_run = [collections.defaultdict(float) for _ in windows]
     intervals = [[] for _ in windows]
     by_kernel = collections.defaultdict(float)
     for name, start, dur, thread, t, op in work:
-        # a run owns what was launched inside its window (the device clock
-        # may be offset from the host's)
-        run = next((i for i, (a, b) in enumerate(windows) if a <= t <= b), None)
+        run = _run_of(windows, t)
         if run is None:
             continue
         module = attribution(scopes, thread, t) if thread is not None else "(no launcher)"
@@ -250,3 +307,74 @@ def analyse(events, on_card):
     print(f"({len(events)} trace events, {len(work)} work items, read in "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
     return windows, per_run, busy, by_kernel
+
+
+def span_table(events) -> dict:
+    """The program's spans in a card's trace (of :func:`capture`), per run
+    (the mean over the runs): for each span name, in order of first start,
+    its ``count``, ``wall_ms``, ``busy_ms`` (the union of the device work
+    clipped to it), ``idle_pct`` (its wall time in which the card ran
+    nothing), ``launched_ms`` (device time of the work launched inside it)
+    and ``top_ms`` (the part of that launched by ``top_module``, the module
+    with the most device time: the ``.level<k>`` rows split it by decode
+    level); ``idle_ms`` and ``idle_outside_spans_ms`` (the card's idle time
+    in the windows, and its part outside every span); ``least_lag_us``, the
+    least time from a kernel's launch call to its start on the device, and
+    ``lags_below_0``: a lag below 0 means that the profiler's device clock
+    is offset from the host's, and the spans from the work by as much."""
+    windows, scopes, program, work = _read(events, True)
+    runs = max(len(windows), 1)
+    kept, per_module = [], collections.Counter()
+    for name, start, dur, thread, t, _ in work:
+        if _run_of(windows, t) is not None:
+            module = attribution(scopes, thread, t) if thread is not None else "(no launcher)"
+            kept.append((t, start, dur, name, module))
+            per_module[module] += dur
+    kept.sort()
+    launches = [k[0] for k in kept]
+    top = per_module.most_common(1)[0][0] if per_module else None
+    busy = []  # the work's union inside the windows: sorted disjoint [start, end]
+    for a, b in windows:
+        for x, y in sorted((max(s, a), min(s + d, b)) for t, s, d, _, _ in kept
+                           if a <= t <= b and min(s + d, b) > max(s, a)):
+            if busy and x <= busy[-1][1]:
+                busy[-1][1] = max(busy[-1][1], y)
+            else:
+                busy.append([x, y])
+    busy_starts = [x for x, _ in busy]
+
+    def busy_in(a, b):
+        k, us = max(bisect.bisect_right(busy_starts, a) - 1, 0), 0.0
+        while k < len(busy) and busy[k][0] < b:
+            us += max(0.0, min(busy[k][1], b) - max(busy[k][0], a))
+            k += 1
+        return us
+
+    program = [sp for sp in program if _run_of(windows, sp[0]) is not None]
+    rows = {}
+    for a, b, name in program:
+        row = rows.setdefault(name, [0, 0.0, 0.0, 0.0, 0.0])
+        inside = kept[bisect.bisect_left(launches, a):bisect.bisect_right(launches, b)]
+        row[0] += 1
+        row[1] += b - a
+        row[2] += busy_in(a, b)
+        row[3] += sum(k[2] for k in inside)
+        row[4] += sum(k[2] for k in inside if k[4] == top)
+    outermost = [(a, b) for a, b, _ in program
+                 if not any(a2 <= a and b <= b2 and (a2, b2) != (a, b) for a2, b2, _ in program)]
+    idle = sum(b - a for a, b in windows) - sum(y - x for x, y in busy)
+    lags = [s - t for t, s, _, name, module in kept if module != "(no launcher)"
+            and not name.lower().startswith(("memcpy", "memset"))]
+    return {
+        "runs": len(windows), "top_module": top,
+        "spans": {name: {"count": n / runs, "wall_ms": wall / 1e3 / runs,
+                         "busy_ms": b / 1e3 / runs,
+                         "idle_pct": 100.0 * (wall - b) / wall if wall else None,
+                         "launched_ms": launched / 1e3 / runs, "top_ms": top_us / 1e3 / runs}
+                  for name, (n, wall, b, launched, top_us) in rows.items()},
+        "idle_ms": idle / 1e3 / runs,
+        "idle_outside_spans_ms": (idle - sum(b - a - busy_in(a, b) for a, b in outermost))
+        / 1e3 / runs,
+        "least_lag_us": min(lags) if lags else None,
+        "lags_below_0": sum(lag < 0 for lag in lags),
+    }

@@ -9,11 +9,14 @@ synthetic FT3D tree (the mini config of tests/test_torch_train_cli.py, with
 trainer's tags (``train/<k>`` for every key of its train-step summary,
 ``train/lr``, ``val/<k>`` for every key of its eval summary) plus the image
 ``val/flow_2d_pred``, read back with ``EventAccumulator``, and a
-``torch.profiler`` trace lies under ``<log.dir>/profile``. Without
+``torch.profiler`` trace lies under ``<log.dir>/profile``, with the
+program's ``rpeflow.*`` spans of the recorded step. Without
 ``tensorboardX`` the trainer still trains and writes no event file.
 """
 
 import glob
+import gzip
+import json
 import os
 import subprocess
 import sys
@@ -146,6 +149,17 @@ def test_trainer_writes_the_jax_trainers_tags_and_the_flow_image(run):
 def test_profile_steps_leave_a_trace(run):
     traces = glob.glob(os.path.join(run, "profile", "*.json*"))
     assert traces and all(os.path.getsize(t) > 0 for t in traces)
+
+
+def test_profile_steps_trace_shows_the_program_spans(run):
+    """The trainer's trace holds the program's ``rpeflow.*`` spans of the
+    step it recorded (``record_spans`` on for its window)."""
+    names = set()
+    for path in glob.glob(os.path.join(run, "profile", "*.json*")):
+        with (gzip.open if path.endswith(".gz") else open)(path, "rt") as f:
+            names |= {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"rpeflow.train_step", "rpeflow.train_step.backward", "rpeflow.train_step.update",
+            "rpeflow.forward", "rpeflow.forward.decode.level1"} <= names
 
 
 def test_trainer_without_tensorboardx_trains_and_writes_no_summaries(tmp_path, monkeypatch):
