@@ -11,11 +11,11 @@ Phases, each of which raises on failure (exit code != 0):
      card at every shape the flagship forward and training step give it,
      with timings, each shape's bound (bytes at 3.35 TB/s, operations at
      67 TFLOP/s f32 or 495 TFLOP/s TF32) and, for the depthwise conv
-     (forward and fused backward), one library
-     call's time; the correlation's forward and, apart, its fused backward;
-     then edge shapes (ragged GDFN, MDTA, depthwise-conv and correlation
-     tiles, FPS ties, MDTA, depthwise-conv and correlation-backward
-     determinism), checked;
+     (forward and fused backward) and the decoder's 3x3 conv (F.conv2d),
+     one library call's time; the correlation's forward and, apart, its
+     fused backward; then edge shapes (ragged GDFN, MDTA, depthwise-conv,
+     correlation and decoder-conv tiles, FPS ties, MDTA, depthwise-conv,
+     correlation-backward and decoder-conv determinism), checked;
   4. card vs CPU: the whole eval forward at a reduced shape, same weights;
   5. flagship: the FlyingThings3D eval forward (batch 4, 576x960, 20-channel
      event voxel, 8192 + 8192 points, 5 decode levels), launch counts of
@@ -126,6 +126,8 @@ SOURCES = {
     "mdta_qkv": ("rpeflow_tpu_torch/csrc/mdta.cu", "rpeflow_tpu/ops/pallas/mdta.py:170"),
     "gdfn": ("rpeflow_tpu_torch/csrc/gdfn.cu", "rpeflow_tpu/ops/pallas/gdfn.py:135"),
     "dwconv": ("rpeflow_tpu_torch/csrc/dwconv.cu", "rpeflow_tpu/ops/pallas/dwconv.py:90"),
+    "conv3x3": ("rpeflow_tpu_torch/csrc/conv3x3.cu",
+                "none: XLA's conv (rpeflow_tpu/nn/layers.py:98)"),
 }
 # the kernels of the tools (phase 11): source, the Pallas kernel replaced,
 # the tool whose call launches them
@@ -187,6 +189,29 @@ CORR_EDGE_SHAPES += [(1, 144, 240, 32, 1), (4, 72, 120, 64, 0), (1, 1, 1, 32, 4)
 #: the non-default plan each edge shape is also run under: 3-row, 32-column
 #: tiles (rows and columns cut by the edge)
 CORR_EDGE_PLAN = dict(th=3, tw=32)
+
+# (B, H, W, Cin, Cout, d) the decoder conv is checked at beyond the model's,
+# each under every tile: Cin not a multiple of 4 or of the 16-channel chunk
+# (3, 17, 98, 243), Cout not a multiple of the tile (4, 36, 68), one pixel,
+# fewer pixels than a tile, a dilation wider than the map, odd H and W
+CONV3X3_EDGE_SHAPES = [(1, 7, 9, 243, 192, 1), (2, 5, 3, 98, 128, 2), (1, 1, 1, 17, 36, 1),
+                       (3, 13, 11, 3, 4, 16), (1, 9, 15, 64, 96, 8), (2, 33, 17, 20, 68, 1)]
+
+
+#: (Cin, Cout, dilation) of the 11 decoder 3x3 convs of a decode level, in
+#: call order: FlowEstimator2D's conv1-conv5, ContextNetwork2D's convs.0-5
+DECODER_CONVS = [(243, 192, 1), (192, 128, 1), (128, 96, 1), (96, 64, 1), (64, 32, 1),
+                 (98, 128, 1), (128, 128, 2), (128, 128, 4), (128, 96, 8), (96, 64, 16),
+                 (64, 32, 1)]
+
+
+def conv3x3_shapes(b, h, w, levels=5):
+    """(B, H, W, Cin, Cout, d) of the decoder's 3x3 convs in one forward of a
+    batch of ``b`` frames of ``h`` x ``w`` inside the model (after its
+    resize to a multiple of 64), in call order: the coarsest level first,
+    level l (1 the finest) at ``h / 2^(l + 1)`` x ``w / 2^(l + 1)``."""
+    return [(b, h >> (l + 1), w >> (l + 1), *conv) for l in range(levels, 0, -1)
+            for conv in DECODER_CONVS]
 
 
 def dwconv_shapes():
@@ -330,6 +355,34 @@ class KernelCases:
             raise AssertionError(f"dwconv {(b, h, w, c, kh)}: two backward calls differ")
         return x, gout, taps, got, want
 
+    def conv3x3(self, b, h, w, cin, cout, d, plan=None):
+        """The forward (under ``plan``, else the default plan) vs its plain
+        version, ``F.conv2d`` in float32 with TF32 off (within 1e-4 of its
+        largest entry: 9 Cin products summed in another order, against
+        cuDNN's pick, an FFT at the widest shapes), one launch a call, two
+        calls bitwise equal."""
+        from rpeflow_tpu_torch.ops import _cuda, conv3x3
+
+        x = self.rnd(b, h, w, cin)
+        weight = self.rnd(cout, cin, 3, 3) / (9 * cin) ** 0.5
+        bias = 0.1 * self.rnd(cout)
+        if plan is None:
+            fwd = lambda: conv3x3.conv3x3_fwd(x, weight, bias, d)  # noqa: E731
+        else:
+            fwd = lambda: conv3x3.launch(x, weight, bias, plan)  # noqa: E731
+        before = _cuda.LAUNCHES["conv3x3"]
+        out = fwd()
+        if _cuda.LAUNCHES["conv3x3"] - before != 1:
+            raise AssertionError(f"conv3x3 {(b, h, w, cin, cout, d)}: "
+                                 f"{_cuda.LAUNCHES['conv3x3'] - before} launches for 1 call")
+        ref = conv3x3.conv3x3_plain(x, weight, bias, d)
+        if max_rel(out, ref) > 1e-4:
+            raise AssertionError(f"conv3x3 {(b, h, w, cin, cout, d)}: rel err "
+                                 f"{max_rel(out, ref):.3e} > 1e-4")
+        if not torch.equal(out, fwd()):
+            raise AssertionError(f"conv3x3 {(b, h, w, cin, cout, d)}: two calls differ")
+        return x, weight, bias, out, ref
+
 
 class KernelRecords(dict):
     """Per-kernel sums over the shapes timed: ms, plain ms, the largest
@@ -393,12 +446,14 @@ def time_kernels(cases, results, shapes, runs, warmup):
     """Each model kernel's case (:class:`KernelCases`) at each of its
     ``shapes`` (kernel name -> shapes: ``fps`` (B, N, S), ``correlation2d``
     (B, H, W, C, d), ``mdta_qkv`` (B, H, W, C, kh), ``gdfn`` (B, H, W, C),
-    ``dwconv`` (B, H, W, C, kh)), timed against its plain version (median
-    of ``runs`` after ``warmup``; the plain FPS, a loop of S steps, after
-    one) and recorded in ``results``. The correlation's forward is timed
-    alone, then its fused backward against the plain backward; the
-    depthwise conv as :func:`dwconv_timed` times it."""
-    from rpeflow_tpu_torch.ops import correlation, fps, gdfn, mdta
+    ``dwconv`` (B, H, W, C, kh), ``conv3x3`` (B, H, W, Cin, Cout, d)), timed
+    against its plain version (median of ``runs`` after ``warmup``; the
+    plain FPS, a loop of S steps, after one) and recorded in ``results``.
+    The correlation's forward is timed alone, then its fused backward
+    against the plain backward; the depthwise conv as :func:`dwconv_timed`
+    times it. The decoder conv's plain version is the library call,
+    ``F.conv2d`` (cuDNN's pick), and is recorded as both."""
+    from rpeflow_tpu_torch.ops import conv3x3, correlation, fps, gdfn, mdta
 
     for b, n, s in shapes["fps"]:
         xyz = cases.fps(b, n, s)
@@ -430,21 +485,30 @@ def time_kernels(cases, results, shapes, runs, warmup):
                        time_ms(lambda: gdfn.gdfn_plain(*args), runs, warmup), *errors(out, ref))
     for shape in shapes["dwconv"]:
         dwconv_timed(results, cases, shape, runs, warmup)
+    for shape in shapes.get("conv3x3", ()):
+        x, weight, bias, out, ref = cases.conv3x3(*shape)
+        d = shape[5]
+        library_ms = time_ms(lambda: conv3x3.conv3x3_plain(x, weight, bias, d), runs, warmup)
+        results.record("conv3x3", shape,
+                       time_ms(lambda: conv3x3.conv3x3_fwd(x, weight, bias, d), runs, warmup),
+                       library_ms, *errors(out, ref), library_ms=library_ms)
 
 
 def phase_kernels(dev):
     """Each kernel vs its plain version at the flagship forward's and the
     training step's shapes (timed, summed, with bounds), then at edge shapes
     (ragged tiles, ties; checked only)."""
-    from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, gdfn
+    from rpeflow_tpu_torch.ops import _cuda, conv3x3, correlation, dwconv, gdfn
 
     cases = KernelCases(dev, SEED)
     results = KernelRecords()
     # one FPS over both clouds stacked, [8, 8192, 3] -> 4096; the correlation
     # on the flagship's five decode levels (the training step's too); the
-    # depthwise conv on the training step's shapes (dwconv_shapes)
+    # depthwise conv on the training step's shapes (dwconv_shapes); the
+    # decoder's 3x3 convs at the flagship's 55 calls (the training step's too)
     shapes = {"fps": [(8, 8192, 4096)], "correlation2d": [(4, h, w, c, 4) for h, w, c, _ in LEVELS],
-              "mdta_qkv": [], "gdfn": [], "dwconv": dwconv_shapes()}
+              "mdta_qkv": [], "gdfn": [], "dwconv": dwconv_shapes(),
+              "conv3x3": conv3x3_shapes(4, 576, 960)}
     for h, w, c, n in LEVELS:
         shapes["mdta_qkv"] += [(8, h, w, c, 3), (4, h, w, 81, 3), (4, h, w, 96, 3),
                                (8, 1, n, c, 1), (4, 1, n, c, 1), (4, 1, n, 64, 1)]
@@ -494,6 +558,11 @@ def phase_kernels(dev):
         cases.corr(*shape)
         cases.corr(*shape, plans=tuple(correlation.correlation_plan(
             *shape, backward=bwd, **CORR_EDGE_PLAN) for bwd in (False, True)))
+    # the decoder conv: each edge shape under the default plan and every tile
+    for shape in CONV3X3_EDGE_SHAPES:
+        cases.conv3x3(*shape)
+        for tile in conv3x3.TILES:
+            cases.conv3x3(*shape, plan=conv3x3.conv3x3_plan(*shape, sms, tile=tile))
     print(f"  edge shapes: gdfn {len(gdfn_edges)} (C 32/64/81/96/128/192 x 2- and 6-row "
           f"tiles cut by the edge), fps {len(fps_edges)} (ties, ragged N, n_samples = N), "
           f"mdta {len(mdta_edges)} (tiles cut by the edge, one token, ragged point runs, "
@@ -502,7 +571,10 @@ def phase_kernels(dev):
           "C 3-1020, ragged point runs, a batch beyond one wave of blocks; two backward calls "
           "bitwise equal), correlation "
           f"{2 * len(CORR_EDGE_SHAPES)} (tiles cut by the edge, C = 3, 20, 81, d = 0, 1, 4, "
-          "B = 1, one pixel; two backward calls bitwise equal): all within tolerance",
+          "B = 1, one pixel; two backward calls bitwise equal), conv3x3 "
+          f"{6 * len(CONV3X3_EDGE_SHAPES)} (Cin 3-243 past the chunk, Cout past the tile, one "
+          "pixel, d = 16 beyond the map, every tile; two calls bitwise equal): all within "
+          "tolerance",
           flush=True)
     return results
 
@@ -1561,7 +1633,7 @@ def phase_dsec_kernels(dev, *paths):
             raise AssertionError(f"gdfn {(b, h, w, c)}: hidden {hidden}")
         gdfn_shapes[(b, h, w, c)] = None
     distinct["gdfn"] = gdfn_shapes
-    unknown = set(distinct) - {"fps", "correlation2d", "mdta_qkv", "gdfn", "dwconv"}
+    unknown = set(distinct) - {"fps", "correlation2d", "mdta_qkv", "gdfn", "dwconv", "conv3x3"}
     if unknown:
         raise AssertionError(f"DSEC shapes of kernels with no case: {sorted(unknown)}")
     results = KernelRecords()

@@ -73,13 +73,14 @@ MFU_LIMIT = 1.05
 TRACED_RUNS = 3
 #: the model kernels' launches in one iteration of each path (phases 5 and 8
 #: of chip_smoke.py): one FPS, a cost volume at each of the 5 decode levels,
-#: the MDTA front halves, GDFNs and depthwise convs of the fusers' blocks;
-#: in a step their backwards too (the correlation's fused one, the depthwise
-#: conv's inside the MDTA and GDFN backwards)
+#: the MDTA front halves, GDFNs and depthwise convs of the fusers' blocks,
+#: the 11 decoder 3x3 convs at each level; in a step their backwards too (the
+#: correlation's fused one, the depthwise conv's inside the MDTA and GDFN
+#: backwards; the decoder convs' backward is cuDNN's)
 EVAL_LAUNCHES = {"fps": 1, "correlation2d": 5, "correlation2d_bwd": 0, "mdta_qkv": 30,
-                 "gdfn": 15, "dwconv": 15}
+                 "gdfn": 15, "dwconv": 15, "conv3x3": 55}
 TRAIN_LAUNCHES = {"fps": 1, "correlation2d": 5, "correlation2d_bwd": 5, "mdta_qkv": 80,
-                  "gdfn": 40, "dwconv": 340}
+                  "gdfn": 40, "dwconv": 340, "conv3x3": 55}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,8 +5,9 @@ images) as in the JAX package; parameters carry the upstream torch names
 and layouts (``conv_fn.weight [O, I, k(, k)]``, BatchNorm ``norm_fn``), so
 JAX-exported and upstream checkpoints load with ``strict=True``. 1x1 convs
 (strided ones on the strided slice) run as a matmul over the channel axis;
-larger kernels run ``F.conv2d`` on a
-channels-last view. Batch norm follows flax (:func:`batch_norm`): batch
+larger kernels run ``F.conv2d`` on a channels-last view, except where a
+subclass overrides :meth:`ConvNormAct.conv` (the 2-D decoder's
+``nn/pyramid2d.py : DecoderConv``). Batch norm follows flax (:func:`batch_norm`): batch
 statistics with the biased variance in training mode, running statistics
 otherwise. The JAX package's space-to-depth first conv (``_S2DConv``) is a
 TPU layout trick over the same parameters and is a plain stride-2 conv here.
@@ -125,7 +126,8 @@ class ConvNormAct(nn.Module):
         self.stride = stride
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def conv(self, x: torch.Tensor) -> torch.Tensor:
+        """The block's conv, bias added, channels-last."""
         conv, dtype = self.conv_fn, self.dtype
         weight, bias = conv.weight, conv.bias
         if dtype is not None:
@@ -139,6 +141,10 @@ class ConvNormAct(nn.Module):
                          conv.dilation, conv.groups).permute(0, 2, 3, 1)
         if dtype is not None:
             x = x + conv.bias.to(dtype)
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
         if self.norm == "batch_norm":
             x = batch_norm(self.norm_fn, x)
         elif self.norm == "instance_norm":

@@ -8,6 +8,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.conv3x3 import conv3x3_nhwc
 from .layers import ConvNormAct, conv2d_nhwc, pointwise
 
 
@@ -51,14 +52,30 @@ class FeaturePyramid2D(nn.Module):
         return outputs
 
 
+class DecoderConv(ConvNormAct):
+    """A 3x3, stride-1 conv block of the 2-D decoder (dilation and zero
+    padding ``dilation``): its conv goes through
+    :func:`~rpeflow_tpu_torch.ops.conv3x3.conv3x3_nhwc`, the hand-written
+    kernel on the card (the encoder's convs stay on ``F.conv2d``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, dilation: int = 1,
+                 norm: Optional[str] = None):
+        super().__init__(in_channels, out_channels, 3, padding=dilation, dilation=dilation,
+                         norm=norm)
+
+    def conv(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.conv_fn
+        return conv3x3_nhwc(x, conv.weight, conv.bias, conv.dilation[0])
+
+
 class FlowEstimator2D(nn.Module):
     """Five 3x3 convs; returns ``[conv5 | conv4]`` features."""
 
     def __init__(self, n_channels: Sequence[int], norm: Optional[str] = None):
         super().__init__()
         for i in range(5):
-            self.add_module(f"conv{i + 1}", ConvNormAct(
-                n_channels[i], n_channels[i + 1], 3, padding=1, norm=norm))
+            self.add_module(f"conv{i + 1}", DecoderConv(n_channels[i], n_channels[i + 1],
+                                                        norm=norm))
         self.flow_feat_dim = n_channels[4] + n_channels[5]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -74,8 +91,7 @@ class ContextNetwork2D(nn.Module):
                  norm: Optional[str] = None):
         super().__init__()
         self.convs = nn.ModuleList(
-            ConvNormAct(n_channels[i], n_channels[i + 1], 3, padding=dil, dilation=dil,
-                        norm=norm)
+            DecoderConv(n_channels[i], n_channels[i + 1], dil, norm=norm)
             for i, dil in enumerate(dilations))
         self.conv_last = nn.Conv2d(n_channels[-1], 2, 3, padding=1)
 

@@ -1,9 +1,10 @@
 """Low-level ops (counterpart of rpeflow_tpu.ops), channels-last.
 
-``fps``, ``correlation``, ``mdta``, ``gdfn`` and ``dwconv`` wrap the
-hand-written CUDA kernels of the model, ``gather`` (``gather_rows``,
-``gather_lanes``) and ``zero_store`` those of the tools; the rest is plain
-PyTorch. (``gdfn`` is not re-exported: the name stays the submodule's.)
+``fps``, ``correlation``, ``mdta``, ``gdfn``, ``dwconv`` and ``conv3x3``
+(the 2-D decoder's 3x3 convs) wrap the hand-written CUDA kernels of the
+model, ``gather`` (``gather_rows``, ``gather_lanes``) and ``zero_store``
+those of the tools; the rest is plain PyTorch. (``gdfn`` is not
+re-exported: the name stays the submodule's.)
 """
 
 from .correlation import correlation2d, correlation2d_plain

@@ -42,6 +42,7 @@ SOURCES = {
     "gather.cu": {"gather_rows_kernel": "gather_rows", "gather_lanes_staged_kernel": "gather_lanes",
                   "gather_lanes_l2_kernel": "gather_lanes"},
     "zero_store.cu": {"zero_store_kernel": "zero_store"},
+    "conv3x3.cu": {"conv3x3_fwd_kernel": "conv3x3"},
 }
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,6 +68,9 @@ _SIGNATURES = {
     "rpeflow_gather_rows": ((_P, _P, _P, _L, _L, _L, _L, _I, _P), _I),
     "rpeflow_gather_lanes": ((_P, _P, _P, _L, _L, _L, _L, _I, _I, _I, _I, _I, _P), _I),
     "rpeflow_zero_store": ((_P, _L, _P), _I),
+    "rpeflow_conv3x3": ((_P, _P, _P, _P, _P, _P), _I),
+    "rpeflow_conv3x3_smem_bytes": ((_I, _I, _I), ctypes.c_longlong),
+    "rpeflow_conv3x3_blocks_per_sm": ((_I, _I, _I), _I),
 }
 
 _lib = None

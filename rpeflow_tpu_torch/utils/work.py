@@ -64,6 +64,11 @@ def kernel_work(name, shape):
         return item * (b * n * c + b * m * c) + 4 * b * m, 0.0, 0.0
     if name == "zero_store":  # [B, H, W, C] float32 zeros written; no byte of x is needed
         return f * int(np.prod(shape)), 0.0, 0.0
+    if name == "conv3x3":  # x [B, H, W, Cin], w [Cout, Cin, 3, 3], bias in; [B, H, W, Cout]
+        # out; 9 Cin Cout FMAs a pixel
+        b, h, w, cin, cout = shape[:5]
+        p = b * h * w
+        return f * (p * (cin + cout) + 9 * cin * cout + cout), 2.0 * 9 * cin * cout * p, 0.0
     raise KeyError(name)
 
 
@@ -85,7 +90,10 @@ def kernel_flops(name, shape):
       on the 2 hidden channels;
     * ``dwconv`` (B, H, W, C, kh): the kh x 3 depthwise taps;
     * ``dwconv_bwd`` (B, H, W, C, kh, n): as many again for each of the
-      ``n`` gradients asked for (input, taps).
+      ``n`` gradients asked for (input, taps);
+    * ``conv3x3`` (B, H, W, Cin, Cout, d): 9 Cin products and sums for
+      each output channel of each pixel (the bias not counted), as a
+      convolution counts.
     """
     if name == "fps":
         b, n, s = shape
@@ -108,4 +116,7 @@ def kernel_flops(name, shape):
     if name == "dwconv_bwd":
         b, h, w, c, kh, n = shape
         return n * 2.0 * kh * 3 * b * h * w * c
+    if name == "conv3x3":
+        b, h, w, cin, cout, _ = shape
+        return 2.0 * 9 * cin * cout * b * h * w
     raise KeyError(name)

@@ -42,7 +42,7 @@ from rpeflow_tpu.model import RPEFlow as JaxRPEFlow
 from rpeflow_tpu.train.config import ConfigNode as JaxConfigNode
 from rpeflow_tpu_torch import bench
 from rpeflow_tpu_torch.compat import load_jax_variables
-from rpeflow_tpu_torch.ops import correlation, dwconv, fps, gdfn, mdta
+from rpeflow_tpu_torch.ops import conv3x3, correlation, dwconv, fps, gdfn, mdta
 from rpeflow_tpu_torch.train.config import ConfigNode
 from rpeflow_tpu_torch.utils.flops import FlopCount
 from torch_port_utils import assert_flow_close, fill_variables, make_inputs, small_cfg_dict
@@ -157,6 +157,9 @@ def _kernel_calls():
         "dwconv_bwd": (lambda: dwconv.dwconv_bwd(x, x, torch.ones(3, 3, 8)), 2 * 2 * 9 * p * c),
         "dwconv_bwd input only": (lambda: dwconv.dwconv_bwd(x, x, torch.ones(3, 3, 8),
                                                             need_dtaps=False), 2 * 9 * p * c),
+        # 9 C products a pixel for each of 12 output channels
+        "conv3x3": (lambda: conv3x3.conv3x3_fwd(x, torch.ones(12, 8, 3, 3), torch.ones(12), 2),
+                    2 * 9 * c * 12 * p),
     }
 
 
@@ -173,7 +176,8 @@ def test_flop_count_of_a_kernel_call(name):
 
 #: the module global each wrapper calls for a CPU tensor
 PLAIN = [(fps, "furthest_point_sampling_plain"), (correlation, "correlation2d_plain"),
-         (mdta, "mdta_qkv_plain"), (gdfn, "gdfn_plain"), (dwconv, "dwconv_plain")]
+         (mdta, "mdta_qkv_plain"), (gdfn, "gdfn_plain"), (dwconv, "dwconv_plain"),
+         (conv3x3, "conv3x3_plain")]
 
 
 def _clone(out):
@@ -209,7 +213,8 @@ def test_flop_count_same_on_kernel_and_plain_route(monkeypatch):
     assert plain_route._excluded > 0 and kernel_route._excluded == 0
     assert kernel_route.total == plain_route.total
     assert kernel_route.kernels == plain_route.kernels
-    assert set(plain_route.kernels) == {"fps", "correlation2d", "mdta_qkv", "gdfn", "dwconv"}
+    assert set(plain_route.kernels) == {"fps", "correlation2d", "mdta_qkv", "gdfn", "dwconv",
+                                        "conv3x3"}
     assert plain_route.total > sum(plain_route.kernels.values()) > 0
     for key in ("flow_2d", "flow_3d"):
         assert torch.equal(out_plain[key], out_kernel[key])

@@ -100,8 +100,8 @@ def test_source_names_no_jax_package_import(path):
 
 
 def test_cpu_tensors_take_the_plain_path(rng):
-    from rpeflow_tpu_torch.ops import (_cuda, correlation, dwconv, fps, gather, gdfn, mdta,
-                                       zero_store)
+    from rpeflow_tpu_torch.ops import (_cuda, conv3x3, correlation, dwconv, fps, gather, gdfn,
+                                       mdta, zero_store)
 
     _cuda.reset_launch_counts()
     x = torch.from_numpy(rng.randn(1, 6, 7, 8).astype(np.float32))
@@ -116,7 +116,8 @@ def test_cpu_tensors_take_the_plain_path(rng):
     gather.gather_rows(x[0], idx)
     gather.gather_lanes(x[0], idx)
     zero_store.zero_store(x, 3)
+    conv3x3.conv3x3_nhwc(x, torch.ones(4, 8, 3, 3), torch.ones(4), 2)
     assert _cuda.LAUNCHES == {"fps": 0, "correlation2d": 0, "correlation2d_bwd": 0,
                               "mdta_qkv": 0, "gdfn": 0, "dwconv": 0, "gather_rows": 0,
-                              "gather_lanes": 0, "zero_store": 0}
+                              "gather_lanes": 0, "zero_store": 0, "conv3x3": 0}
     assert _cuda._lib is None, "a CPU call must not build or load the kernel library"

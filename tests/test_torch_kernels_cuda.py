@@ -13,7 +13,9 @@ qk/sq within 1e-4 of their largest entry, two calls bitwise equal; GDFN rtol 1e-
 depthwise conv and its input gradient atol 1e-5, its taps gradient (a sum
 over every pixel) within 1e-4 of its largest entry, two backward calls
 bitwise equal; the gathers and the zero store exactly equal (they copy or
-store values), the lane gather under other plans too.
+store values), the lane gather under other plans too; the decoder's 3x3
+conv within 1e-4 of F.conv2d's largest entry (f32, TF32 off; cuDNN's pick
+is an FFT at the widest shapes), two calls bitwise equal.
 The autograd functions (kernels inside) hold their gradients to
 ``torch.autograd`` through the plain compositions within 1e-4 of each
 gradient's largest entry.
@@ -22,13 +24,25 @@ gradient's largest entry.
 import pytest
 import torch
 
-from rpeflow_tpu_torch.ops import _cuda, correlation, dwconv, fps, gather, gdfn, mdta, zero_store
+from rpeflow_tpu_torch.ops import (
+    _cuda,
+    conv3x3,
+    correlation,
+    dwconv,
+    fps,
+    gather,
+    gdfn,
+    mdta,
+    zero_store,
+)
 from chip_smoke import (
+    CONV3X3_EDGE_SHAPES,
     CORR_EDGE_PLAN,
     CORR_EDGE_SHAPES,
     DWCONV_EDGE_SHAPES,
     GATHER_EDGE_SHAPES,
     ZERO_EDGE_SHAPES,
+    conv3x3_shapes,
     gather_case,
 )
 from torch_port_utils import MDTA_EDGE_SHAPES, MDTA_FLAGSHIP_SHAPES
@@ -380,3 +394,83 @@ def test_zero_store_equals_plain(cuda_device, shape, tile_h):
     assert torch.equal(got, zero_store.zero_store_plain(x, tile_h))
     with pytest.raises(ValueError):
         zero_store.zero_store(x, shape[1] + 1)
+
+
+#: the decoder conv's shapes at level 1 and level 5 of both configurations'
+#: frames (FT3D: batch 4, 576x960 inside; DSEC: batch 3, 512x640)
+_CONV3X3_CASES = [s for b, h, w in ((4, 576, 960), (3, 512, 640))
+                  for s in conv3x3_shapes(b, h, w) if s[1] in (h >> 2, h >> 6)]
+
+
+def _conv3x3_inputs(dev, shape, seed=0):
+    b, h, w, cin, cout, _ = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, h, w, cin, generator=g, device=dev)
+    weight = torch.randn(cout, cin, 3, 3, generator=g, device=dev) / (9 * cin) ** 0.5
+    return x, weight, 0.1 * torch.randn(cout, generator=g, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _CONV3X3_CASES + CONV3X3_EDGE_SHAPES, ids=str)
+def test_conv3x3_kernel_matches_plain(cuda_device, shape):
+    """One launch a call, within 1e-4 of F.conv2d's largest entry, and two
+    calls bitwise equal (no atomics, no split of K)."""
+    x, weight, bias = _conv3x3_inputs(cuda_device, shape)
+    d = shape[5]
+    before = _cuda.LAUNCHES["conv3x3"]
+    out = conv3x3.conv3x3_fwd(x, weight, bias, d)
+    assert _cuda.LAUNCHES["conv3x3"] - before == 1
+    _assert_sums_close(out, conv3x3.conv3x3_plain(x, weight, bias, d), f"conv3x3 {shape}")
+    assert torch.equal(out, conv3x3.conv3x3_fwd(x, weight, bias, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", conv3x3.TILES, ids=str)
+@pytest.mark.parametrize("shape", CONV3X3_EDGE_SHAPES + [(4, 9, 15, 243, 192, 1)], ids=str)
+def test_conv3x3_every_tile_matches_plain(cuda_device, shape, tile):
+    x, weight, bias = _conv3x3_inputs(cuda_device, shape, seed=1)
+    plan = conv3x3.conv3x3_plan(*shape, tile=tile)
+    out = conv3x3.launch(x, weight, bias, plan)
+    _assert_sums_close(out, conv3x3.conv3x3_plain(x, weight, bias, shape[5]),
+                       f"conv3x3 {shape} {tile}")
+
+
+@pytest.mark.cuda
+def test_conv3x3_plan_matches_kernel(cuda_device):
+    """The plan's shared memory is the kernel's own count, and the card
+    holds BLOCKS_PER_SM blocks of every tile on an SM at once."""
+    for tile in conv3x3.TILES:
+        plan = conv3x3.conv3x3_plan(4, 144, 240, 243, 192, 1, tile=tile)
+        assert _cuda.lib().rpeflow_conv3x3_smem_bytes(*tile) == plan.smem_bytes
+        assert conv3x3.BLOCKS_PER_SM * plan.smem_bytes <= conv3x3.SMEM_LIMIT
+        assert _cuda.lib().rpeflow_conv3x3_blocks_per_sm(*tile) >= conv3x3.BLOCKS_PER_SM
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 36, 60, 243, 192, 1), (2, 36, 60, 98, 128, 1),
+                                   (2, 36, 60, 96, 64, 16)], ids=str)
+def test_conv3x3_gradients_match_conv2d(cuda_device, shape):
+    """The Function's gradients are those of F.conv2d (the same
+    convolution_backward call), within 1e-4 of each one's largest entry."""
+    x, weight, bias = _conv3x3_inputs(cuda_device, shape, seed=2)
+    d = shape[5]
+    gout = torch.randn(*shape[:3], shape[4], device=cuda_device)
+    got = _grads(lambda a, w_, b_: conv3x3.conv3x3_nhwc(a, w_, b_, d), (x, weight, bias), gout)
+    want = _grads(lambda a, w_, b_: conv3x3.conv3x3_plain(a, w_, b_, d), (x, weight, bias), gout)
+    for name, a, b in zip(("x", "weight", "bias"), got, want):
+        _assert_sums_close(a, b, f"conv3x3 {shape} gradient of {name}")
+
+
+@pytest.mark.cuda
+def test_conv3x3_refuses_what_it_cannot_run(cuda_device):
+    x, weight, bias = _conv3x3_inputs(cuda_device, (1, 8, 8, 32, 16, 1))
+    with pytest.raises(ValueError):  # not contiguous
+        conv3x3.conv3x3_fwd(x.transpose(1, 2), weight, bias, 1)
+    with pytest.raises(TypeError):  # not float32
+        conv3x3.conv3x3_fwd(x.double(), weight.double(), bias.double(), 1)
+    with pytest.raises(TypeError):
+        conv3x3.conv3x3_fwd(x.half(), weight, bias, 1)
+    with pytest.raises(ValueError):  # Cout not a multiple of 4
+        conv3x3.conv3x3_fwd(x, weight[:6], bias[:6], 1)
+    with pytest.raises(ValueError):  # weight of another Cin
+        conv3x3.conv3x3_fwd(x, weight[:, :16], bias, 1)

@@ -28,7 +28,9 @@ levels, 256 points where it builds the model), and its results are checked:
   ``scripts/bench_knn1.py``'s four, then timed;
 * ``torch_bench_convex``: variants B and C within 1e-5 of the JAX
   ``convex_upsample`` (``scripts/bench_convex.py`` runs its bench at import,
-  so it is not imported), then timed.
+  so it is not imported), then timed;
+* ``torch_conv3x3_probe``: the decoder's 55 conv calls of a path at a tiny
+  frame, the plain version equal to ``F.conv2d``, with their sums.
 """
 
 import importlib.util
@@ -327,3 +329,17 @@ def test_bench_convex_matches_the_jax_upsampler(capsys):
     res = tool.main(["--device", "cpu", "--b", "1", "--h", "8", "--w", "12"])
     assert capsys.readouterr().out.count("max err") == 2
     assert all(r["max_abs_err"] < 1e-5 and np.isfinite(r["ms"]) for r in res.values())
+
+
+@pytest.mark.parametrize("path", ["ft3d", "dsec"])
+def test_conv3x3_probe(path, capsys):
+    tool = _load("scripts/torch_conv3x3_probe.py")
+    report = tool.main(["--device", "cpu", "--hw", "64", "64", "--runs", "1", "--paths", path,
+                        "--f64"])
+    sums = report["paths"][path]["sums"]
+    assert sums["calls"] == 55 and sums["max_err"] == 0.0 and sums["bitwise_equal"]
+    assert np.isfinite(sums["ms"]) and sums["bound_ms"] > 0
+    recs = report["paths"][path]["shapes"]
+    assert {r["level"] for r in recs} == {1, 2, 3, 4, 5}
+    assert all(r["err_f64"] < 1e-5 for r in recs if "err_f64" in r)
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["conv3x3"][path]["calls"] == 55
