@@ -28,7 +28,8 @@ Phases, each of which raises on failure (exit code != 0):
      per-leaf gradients and updated batch statistics;
   8. flagship training: conf/train/pretrain.yaml's model at the FT3D
      training shape (batch 4, 540x960 frames, 8192 + 8192 points), MI on,
-     one warm-up and five timed steps, launches of every kernel in one step
+     one warm-up and five timed steps (the first captures the step as a
+     CUDA graph, the others replay it), launches of every kernel in one step
      (five of the correlation's backward), then a checkpoint loaded strictly
      into the eval model;
   9. data parallelism (rpeflow_tpu_torch.parallel) on the card: (a) the
@@ -78,7 +79,16 @@ Phases, each of which raises on failure (exit code != 0):
      FlopCount.calls``); (d) card against CPU at DSEC's 3:4 aspect, batch 1,
      144x192, 2048 points: the forward and its metric sums, and one l1 step
      with the sparse masks under phase 7's bounds. One JSON line
-     ``{"dsec": ...}`` holds its numbers.
+     ``{"dsec": ...}`` holds its numbers;
+ 14. the train step as a CUDA graph (``train/graph.py``) at phase 8's FT3D
+     and phase 13(b)'s DSEC shapes, MI on: 4 steps from the same weights,
+     batches and MI seed, three times eagerly (``eager_train_step``) and
+     once through ``train_step`` (first sight, capture and a replay, a
+     replay): ms a step, the step counter, the launches of each step equal
+     to an eager step's, and per group (parameters, Adam's state, buffers,
+     summaries) the relative norm of the graphed run's difference to its
+     nearest eager run, held to twice the largest between two eager runs,
+     and the leaf of the largest gap. One JSON line ``{"step_graph": ...}``.
 The second-to-last line is a JSON object of per-kernel results (phase 3's
 times, errors, bounds and library time summed over the shapes; the launches
 of one eval forward, phase 5, or, for the correlation's backward, which the
@@ -1736,6 +1746,125 @@ def dsec_card_vs_cpu(dev):
 T0 = time.perf_counter()
 
 
+def step_state(model, opt):
+    """Every leaf a train step moves, by group (parameters, Adam's state,
+    buffers), copied."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {"params": {n: p.detach().clone() for n, p in model.named_parameters()},
+            "adam": {f"{names[id(p)]}.{k}": v.detach().clone()
+                     for p, st in opt.optimizer.state.items() for k, v in st.items()},
+            "buffers": {n: b.clone() for n, b in model.named_buffers()}}
+
+
+def worst_gaps(run, ref):
+    """Per group of two runs' :func:`step_state` (and their summaries): the
+    norm of the difference over the norm of ``ref`` over all the group's
+    leaves, and the leaf with the largest ``max |a - b| / max |b|`` with
+    that gap."""
+    (sums, state), (ref_sums, ref_state) = run, ref
+    out = {}
+    for group, leaves in ref_state.items():
+        gaps = {k: float((state[group][k].double() - v.double()).abs().max())
+                / (float(v.double().abs().max()) or 1.0) for k, v in leaves.items() if v.numel()}
+        diff = sum(float((state[group][k].double() - v.double()).square().sum())
+                   for k, v in leaves.items())
+        norm = (diff / sum(float(v.double().square().sum()) for v in leaves.values())) ** .5
+        out[group] = (norm, *max(gaps.items(), key=lambda kv: kv[1]))
+    a = torch.tensor([v for sm in sums for v in sm.values()], dtype=torch.float64)
+    b = torch.tensor([v for sm in ref_sums for v in sm.values()], dtype=torch.float64)
+    gaps = {f"{i}.{k}": abs(x[k] - y[k]) / (abs(y[k]) or 1.0)
+            for i, (x, y) in enumerate(zip(sums, ref_sums)) for k in y}
+    out["summaries"] = (float((a - b).norm() / b.norm()),
+                        *max(gaps.items(), key=lambda kv: kv[1]))
+    return out
+
+
+def eager_spread(eager, graphed):
+    """Per group (:func:`worst_gaps`'s): the largest gap between two of the
+    ``eager`` runs' ``(summaries, step_state)`` and the smallest between
+    ``graphed`` and one of them. A graphed run that computes what an eager
+    one computes is one more draw of the eager runs' rounding noise (the
+    backward's atomic sums differ from run to run), so it lies no farther
+    from its nearest eager run than two eager runs lie apart, within a
+    factor for the draw."""
+    pairs = [worst_gaps(a, b) for i, a in enumerate(eager) for b in eager[i + 1:]]
+    near = [worst_gaps(graphed, e) for e in eager]
+    return {g: (max(p[g][0] for p in pairs), min(n[g][0] for n in near)) for g in near[0]}
+
+
+def graph_vs_eager(dev, label, model, training, batches):
+    """14: ``batches`` through three eager runs and one graphed run of
+    ``model``'s copies, each with a fresh optimizer and MI generator: ms a
+    step, the step counter, the launches of each step and, per group, the
+    graphed run's gap to its nearest eager run held to twice the eager
+    runs' largest (:func:`eager_spread`), with the leaf of the largest gap
+    to the first eager run."""
+    from rpeflow_tpu_torch.ops import _cuda
+    from rpeflow_tpu_torch.train import graph
+    from rpeflow_tpu_torch.train.optim import optimizer_factory
+    from rpeflow_tpu_torch.train.state import eager_train_step, train_step
+
+    runs = []
+    for step in (eager_train_step,) * 3 + (train_step,):
+        copy_ = copy.deepcopy(model)
+        opt = optimizer_factory(training, copy_, steps_per_epoch=100)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        graph.reset_step_counts()
+        sums, ms, launches = [], [], []
+        for bt in batches:
+            torch.cuda.synchronize()
+            _cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            sums.append(step(copy_, opt, bt, gen))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(dict(_cuda.LAUNCHES))
+        runs.append(((sums, step_state(copy_, opt)), ms, launches, dict(graph.STEPS)))
+        del copy_, opt
+        torch.cuda.empty_cache()
+    eager, graphed = runs[:3], runs[3]
+    spread = eager_spread([r[0] for r in eager], graphed[0])
+    leaf = worst_gaps(graphed[0], eager[0][0])
+    steps = {k: n for k, n in graphed[3].items() if n}
+    print(f"  {label}: eager ms/step {[round(t, 1) for t in eager[0][1]]}, graphed "
+          f"{[round(t, 1) for t in graphed[1]]} (first sight, capture + replay, replays); "
+          f"steps {steps}", flush=True)
+    for group, (tol, got) in spread.items():
+        print(f"  {label}: {group}: graphed vs nearest eager {got:.3e}, eager vs eager up to "
+              f"{tol:.3e}; largest leaf gap to the first eager run {leaf[group][2]:.3e} "
+              f"({leaf[group][1]})", flush=True)
+    bad = [g for g, (tol, got) in spread.items() if got > 2 * tol]
+    if steps != {"eager_first_sight": 1, "capture": 1, "replay": len(batches) - 2}:
+        bad.append(f"steps {steps}")
+    if any(n != eager[0][2][0] for n in graphed[2]):
+        bad.append(f"launches {graphed[2]} against {eager[0][2][0]}")
+    if bad:
+        raise AssertionError(f"{label}: graphed steps outside the eager runs' spread: {bad}")
+    return {"eager_ms": eager[0][1], "graphed_ms": graphed[1], "steps": steps,
+            "gaps": {g: got for g, (_, got) in spread.items()},
+            "eager_gaps": {g: tol for g, (tol, _) in spread.items()},
+            "leaf_gaps": {g: leaf[g][1:] for g in leaf}}
+
+
+def phase_step_graph(dev):
+    """14: the train step as a CUDA graph against eager steps at the FT3D
+    training shape (pretrain.yaml's model and Adam) and the DSEC fine-tune
+    shape (dsec.yaml's), MI on, 4 steps each (:func:`graph_vs_eager`)."""
+    from rpeflow_tpu_torch.flagship import DSEC_TRAIN, dsec_training_cfg, make_dsec_batch
+    from rpeflow_tpu_torch.model import RPEFlow, seeded_init_
+
+    report = {}
+    for label, order, training, make, shape in (
+            ("FT3D", "l2", training_cfg(), make_batch, TRAIN),
+            ("DSEC", "l1", dsec_training_cfg(), make_dsec_batch, DSEC_TRAIN)):
+        torch.cuda.empty_cache()
+        model = seeded_init_(RPEFlow(model_cfg(order), N_SAMPLES), SEED).to(dev).train()
+        batches = [make(SEED + 40 + i, device=dev, targets=True, **shape) for i in range(4)]
+        report[label] = graph_vs_eager(dev, label, model, training, batches)
+        del model, batches
+    print(json.dumps({"step_graph": report}), flush=True)
+
+
 def phase(title):
     print(f"{title} (at {time.perf_counter() - T0:.0f} s)", flush=True)
 
@@ -1791,6 +1920,9 @@ def main():
     phase("[13] DSEC: eval forward (batch 3, 480x640, 8192 + 8192 points) and fine-tune step "
           "(l1, MI on; batch 3, then 12), each kernel at the DSEC shapes, card vs CPU at 144x192")
     phase_dsec(dev)
+    phase("[14] the train step as a CUDA graph against eager steps, FT3D (batch 4, 540x960) "
+          "and DSEC (batch 3, 480x640), MI on")
+    phase_step_graph(dev)
 
     kernels = []
     for name, (src, rep) in SOURCES.items():

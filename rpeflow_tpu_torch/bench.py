@@ -27,6 +27,12 @@ window: every element of the last ``flow_2d`` and ``flow_3d`` finite
 (eval); every step's summary finite and a parameter moved (train).
 Nothing is retried and no reading is dropped.
 
+A train step runs as a CUDA graph from its second call on
+(``train/graph.py``): the counted step runs eagerly (its first sight), the
+first warm-up step captures, every later step replays; the bench prints
+the step counter (``train/graph.py : STEPS``) of each train workload on
+stderr.
+
 Then, per workload, a fresh child process (``--traced``) runs 3 iterations
 under ``torch.profiler`` (after one warm-up) and reports the device ms per
 iteration by category, the device-busy share of each iteration's window and
@@ -57,6 +63,7 @@ import numpy as np
 import torch
 
 from .flagship import FLAGSHIP, TRAIN, make_batch, model_cfg, n_samples, training_cfg
+from .train import graph
 from .utils import timing
 
 MODEL_KEYS = ("images", "pcs", "event_voxel", "intrinsics")
@@ -350,7 +357,10 @@ def main(argv=None) -> int:
     for name in names:
         wl = WORKLOADS[name]
         t0 = time.perf_counter()
+        graph.reset_step_counts()
         times, flop, peak, batches_gib, launches, faults = measure(wl, dev, args.seed)
+        if wl.train:
+            print(f"bench: {name}: train steps {graph.STEPS}", file=sys.stderr, flush=True)
         gc.collect()  # the cached blocks back for the next workload and the children
         torch.cuda.empty_cache()
         line = metric_line(wl, times, flop, peak, batches_gib, launches, device)

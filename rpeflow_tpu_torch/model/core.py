@@ -33,7 +33,13 @@ from ..nn.pyramid2d import ContextNetwork2D, FeaturePyramid2D, FlowEstimator2D, 
 from ..nn.pyramid3d import Correlation3D, FeaturePyramid3D, FlowEstimator3D
 from ..ops.correlation import correlation2d
 from ..ops.geometry import CameraInfo, project_feat_with_nn_corr, project_pc2image
-from ..ops.interp import backwarp_3d, convex_upsample, knn_interpolation, resize_bilinear_ac
+from ..ops.interp import (
+    backwarp_3d,
+    convex_upsample,
+    device_constant,
+    knn_interpolation,
+    resize_bilinear_ac,
+)
 from ..ops.knn import k_nearest_neighbor
 from ..ops.sample import backwarp_2d, grid_sample_2d, mesh_grid
 from ..utils.profile import span
@@ -168,6 +174,17 @@ def _levels(make, n_levels: int) -> nn.ModuleList:
     return nn.ModuleList([nn.Identity()] + [make(i) for i in range(1, n_levels)])
 
 
+def level_scale(h: int, w: int, camera: CameraInfo, device) -> torch.Tensor:
+    """The factor from the camera's sensor to a ``h x w`` decode level's
+    pixels, ``[(w - 1) / (sensor_w - 1), (h - 1) / (sensor_h - 1)]``, on
+    ``device`` (float32)."""
+    sw, sh = camera.sensor_w, camera.sensor_h
+    return device_constant(
+        ("level_scale", h, w, sh, sw, device),
+        lambda: torch.tensor([(w - 1) / (sw - 1), (h - 1) / (sh - 1)], dtype=torch.float32,
+                             device=device))
+
+
 class RPEFlowCore(nn.Module):
     """Encoder/decoder assembly. ``n_levels`` counts pyramid levels including
     level 0 (6 at full depth: the full cloud and 5 FPS levels, decoded over
@@ -259,8 +276,7 @@ class RPEFlowCore(nn.Module):
         b, h, w = feat1_2d.shape[:3]
         n_points = xyz1.shape[1]
         dev = feat1_2d.device
-        scale = torch.tensor([(w - 1) / (camera.sensor_w - 1), (h - 1) / (camera.sensor_h - 1)],
-                             dtype=torch.float32, device=dev)
+        scale = level_scale(h, w, camera, dev)
         xy1 = project_pc2image(xyz1, camera) * scale
         xy2 = project_pc2image(xyz2, camera) * scale
 
@@ -354,8 +370,10 @@ class RPEFlowCore(nn.Module):
         flows_2d = list(flows_2d)[::-1]
         flows_3d = list(flows_3d)[::-1]
         if torch.is_grad_enabled():
+            # the upsampler draws no random number, so the recompute needs no
+            # RNG state (stashing it would read the generator inside a capture)
             flows_2d[0] = checkpoint(self._convex_upsample, flow_feat_2d_finest, flows_2d[0],
-                                     use_reentrant=False)
+                                     use_reentrant=False, preserve_rng_state=False)
         else:
             flows_2d[0] = self._convex_upsample(flow_feat_2d_finest, flows_2d[0])
         for i in range(1, len(flows_2d)):

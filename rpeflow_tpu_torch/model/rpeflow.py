@@ -45,6 +45,7 @@ class RPEFlow(nn.Module):
         super().__init__()
         self.cfgs = cfgs
         self.n_samples_list = tuple(n_samples_list)
+        self.amp = amp
         self.pwc_fusion_core = RPEFlowCore(cfgs.pwc2d, cfgs.pwc3d,
                                            n_levels=len(self.n_samples_list) + 1, amp=amp)
         self.eval()

@@ -117,7 +117,9 @@ class CrossTransformerBlock(nn.Module):
         if x.shape != y.shape:
             raise ValueError(f"shapes {tuple(x.shape)} and {tuple(y.shape)}")
         if torch.is_grad_enabled():
-            return checkpoint(self._forward, x, y, use_reentrant=False)
+            # the block draws no random number, so the recompute needs no RNG
+            # state (stashing it would read the generator inside a capture)
+            return checkpoint(self._forward, x, y, use_reentrant=False, preserve_rng_state=False)
         return self._forward(x, y)
 
     def _forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -15,13 +15,17 @@ The reparametrisation noise comes from :func:`draw_noise` with the
 ``torch.Generator`` the caller passes (tests replace the function to inject
 the noise). Under data parallelism every rank draws the global batch's
 noise from a generator in the same state and keeps its own slice, as each
-device of the JAX package takes its slice of one global draw.
+device of the JAX package takes its slice of one global draw. A step
+captured as a CUDA graph (``train/graph.py``) reads its draws from the
+buffers of a :class:`NoisePlan`, which it fills from the generator before
+each replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
@@ -30,12 +34,67 @@ from ..parallel.mesh import process_count, process_index
 from .layers import ConvNormAct
 
 
+class NoisePlan:
+    """The MI noise of a captured step. While it records (:func:`recording`)
+    an eager step, :func:`draw_noise` draws as always and the plan notes
+    each draw's shape, in order; :meth:`allocate` then makes a buffer for
+    each, outside any capture (a buffer made inside one would share its
+    memory with the graph's earlier work, which a replay would write over
+    the noise). While it records the capture, each draw takes the next
+    buffer; :meth:`draw` fills the buffers from a generator in the order of
+    the draws. ``torch.randn`` is ``normal_`` on a fresh tensor, so the
+    buffers hold, bit for bit, what the eager draws would have drawn."""
+
+    def __init__(self):
+        self.shapes: List[tuple] = []
+        self.buffers: List[torch.Tensor] = []
+        self.served = 0
+
+    def allocate(self, device) -> None:
+        self.buffers = [torch.empty(s, device=device) for s in self.shapes]
+        self.served = 0
+
+    def take(self, shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+        if not self.buffers:
+            self.shapes.append(tuple(shape))
+            return torch.randn(shape, generator=generator, device=device)
+        i = self.served
+        if i >= len(self.buffers) or self.shapes[i] != tuple(shape):
+            raise RuntimeError(f"MI draw {i} of shape {tuple(shape)} was not in the eager "
+                               f"step's plan {self.shapes}")
+        self.served += 1
+        return self.buffers[i]
+
+    def draw(self, generator: Optional[torch.Generator]) -> None:
+        for buf in self.buffers:
+            buf.normal_(generator=generator)
+
+
+_PLAN: Optional[NoisePlan] = None
+
+
+@contextlib.contextmanager
+def recording(plan: NoisePlan):
+    """Let :func:`draw_noise` go through ``plan``."""
+    global _PLAN
+    _PLAN = plan
+    try:
+        yield plan
+    finally:
+        _PLAN = None
+
+
 def draw_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     """Standard normal noise of ``shape`` (leading axis: the rank's batch) on
     ``device`` from ``generator``: this rank's slice of the global batch's
-    draw, so that it equals one process's draw on the whole batch."""
+    draw, so that it equals one process's draw on the whole batch. While a
+    :class:`NoisePlan` records, through the plan."""
     world, rank = process_count(), process_index()
-    full = torch.randn((shape[0] * world, *shape[1:]), generator=generator, device=device)
+    full_shape = (shape[0] * world, *shape[1:])
+    if _PLAN is not None:
+        full = _PLAN.take(full_shape, generator, device)
+    else:
+        full = torch.randn(full_shape, generator=generator, device=device)
     return full[rank * shape[0]:(rank + 1) * shape[0]]
 
 

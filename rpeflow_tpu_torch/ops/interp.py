@@ -1,5 +1,10 @@
 """Resizing and interpolation with align_corners=True semantics (counterpart
 of rpeflow_tpu/ops/interp.py). Channels-last throughout.
+
+Values that depend only on shapes (the resize taps, the flow's rescale) are
+built on the host once per shape, device and dtype and kept on the device
+(:func:`device_constant`): a train step captured as a CUDA graph may copy
+nothing from the host, and the eval forward saves the copies.
 """
 
 from __future__ import annotations
@@ -9,6 +14,21 @@ import torch
 
 from .gather import batch_gather_xyz_feat
 from .knn import k_nearest_neighbor
+
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(key, make) -> torch.Tensor:
+    """``make()``, built the first time ``key`` (which names what the value
+    depends on: the shapes, the device, the dtype) is asked for, and kept.
+    Built outside inference mode, so that a train step may save it for its
+    backward after an eval forward built it."""
+    value = _CONSTANTS.get(key)
+    if value is None:
+        with torch.inference_mode(False):
+            value = _CONSTANTS[key] = make()
+    return value
 
 
 def _ac_taps(n_in: int, n_out: int):
@@ -23,21 +43,33 @@ def _ac_taps(n_in: int, n_out: int):
     return i0, i1, w1
 
 
+def ac_taps_on(n_in: int, n_out: int, device, dtype):
+    """:func:`_ac_taps` on ``device``: ``(i0, i1, w1, 1 - w1)``, the indices
+    as int64, the weights in ``dtype``."""
+    def make():
+        i0, i1, w1 = _ac_taps(n_in, n_out)
+        return (torch.from_numpy(i0).to(device), torch.from_numpy(i1).to(device),
+                torch.from_numpy(w1).to(device, dtype),
+                torch.from_numpy(1.0 - w1).to(device, dtype))
+    return device_constant(("ac_taps", n_in, n_out, device, dtype), make)
+
+
 def resize_bilinear_ac(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """``[B, H, W, C] -> [B, out_h, out_w, C]``, rows first then columns."""
     _, h, w, _ = x.shape
     if (h, w) == (out_h, out_w):
         return x
-    dev, dt = x.device, x.dtype
-    i0, i1, wy = _ac_taps(h, out_h)
-    wy_t = torch.from_numpy(wy).to(dev, dt)[None, :, None, None]
-    wy0 = torch.from_numpy(1.0 - wy).to(dev, dt)[None, :, None, None]
-    x = x[:, torch.from_numpy(i0).to(dev)] * wy0 + x[:, torch.from_numpy(i1).to(dev)] * wy_t
-    j0, j1, wx = _ac_taps(w, out_w)
-    wx_t = torch.from_numpy(wx).to(dev, dt)[None, None, :, None]
-    wx0 = torch.from_numpy(1.0 - wx).to(dev, dt)[None, None, :, None]
-    return (x[:, :, torch.from_numpy(j0).to(dev)] * wx0
-            + x[:, :, torch.from_numpy(j1).to(dev)] * wx_t)
+    i0, i1, wy, wy0 = ac_taps_on(h, out_h, x.device, x.dtype)
+    x = x[:, i0] * wy0[None, :, None, None] + x[:, i1] * wy[None, :, None, None]
+    j0, j1, wx, wx0 = ac_taps_on(w, out_w, x.device, x.dtype)
+    return x[:, :, j0] * wx0[None, None, :, None] + x[:, :, j1] * wx[None, None, :, None]
+
+
+def flow_scale(h: int, w: int, target_h: int, target_w: int, device, dtype) -> torch.Tensor:
+    """``[target_w / w, target_h / h]`` on ``device``."""
+    return device_constant(
+        ("flow_scale", h, w, target_h, target_w, device, dtype),
+        lambda: torch.tensor([target_w / w, target_h / h], dtype=dtype, device=device))
 
 
 def resize_flow2d(flow: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
@@ -46,8 +78,7 @@ def resize_flow2d(flow: torch.Tensor, target_h: int, target_w: int) -> torch.Ten
     if (h, w) == (target_h, target_w):
         return flow
     flow = resize_bilinear_ac(flow, target_h, target_w)
-    scale = torch.tensor([target_w / w, target_h / h], dtype=flow.dtype, device=flow.device)
-    return flow * scale
+    return flow * flow_scale(h, w, target_h, target_w, flow.device, flow.dtype)
 
 
 def resize_to_64x(x: torch.Tensor) -> torch.Tensor:

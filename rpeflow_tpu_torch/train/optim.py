@@ -13,6 +13,11 @@ As upstream and in the JAX package:
 * schedules are functions of the step counter: OneCycle per step (30%
   warm-up, cosine, div_factor 25, final_div_factor 1e4), Step/MultiStep per
   epoch (``step // steps_per_epoch``). The first update uses ``schedule(0)``.
+
+On CUDA parameters Adam is built ``capturable``, its learning rate a 0-d
+float32 tensor on the device that :meth:`Optimizer.set_lr` writes before
+each update, so that the update can be captured in a CUDA graph and
+replayed (``train/graph.py``); on the CPU it is the plain Adam.
 """
 
 from __future__ import annotations
@@ -75,24 +80,40 @@ def param_groups(model: nn.Module) -> Tuple[List[nn.Parameter], List[nn.Paramete
 class Optimizer:
     """A torch optimizer whose learning rate follows ``schedule(step)``.
 
-    :meth:`step` sets ``schedule(step_count)`` on every group, updates, and
-    counts the step. Zeroing gradients is the caller's (the frozen
-    parameters hold gradients too).
+    :meth:`step` sets ``schedule(step_count)`` on every group
+    (:meth:`set_lr`), updates, and counts the step. Zeroing gradients is the
+    caller's (the frozen parameters hold gradients too). :attr:`graphs`
+    holds the train steps captured with this optimizer (``train/graph.py``);
+    :meth:`load_state_dict` drops them, as it replaces the state tensors
+    they update.
     """
 
     def __init__(self, optimizer: torch.optim.Optimizer, schedule: Callable[[int], float]):
         self.optimizer = optimizer
         self.schedule = schedule
         self.step_count = 0
+        self.graphs = None
 
     @property
     def lr(self) -> float:
         return float(self.schedule(self.step_count))
 
-    def step(self) -> None:
+    @property
+    def capturable(self) -> bool:
+        return all(g.get("capturable", False) for g in self.optimizer.param_groups)
+
+    def set_lr(self) -> None:
+        """Write ``schedule(step_count)`` into every group: into its device
+        tensor where the learning rate is one (a capturable Adam)."""
         lr = self.lr
         for group in self.optimizer.param_groups:
-            group["lr"] = lr
+            if torch.is_tensor(group["lr"]):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
+
+    def step(self) -> None:
+        self.set_lr()
         self.optimizer.step()
         self.step_count += 1
 
@@ -100,8 +121,20 @@ class Optimizer:
         return {"step": self.step_count, "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, state: Dict) -> None:
+        """Load a state saved by either kind of Adam: each group keeps this
+        optimizer's own ``lr`` and ``capturable``, and a plain Adam takes its
+        step counts on the host."""
+        saved = state["optimizer"]
+        own = self.optimizer.param_groups
+        groups = [dict(g, **{k: mine[k] for k in ("lr", "capturable") if k in mine})
+                  for g, mine in zip(saved["param_groups"], own)]
+        steps_on_host = not self.capturable
+        per_param = {i: (dict(s, step=s["step"].cpu())
+                         if steps_on_host and torch.is_tensor(s.get("step")) else s)
+                     for i, s in saved["state"].items()}
+        self.optimizer.load_state_dict({"state": per_param, "param_groups": groups})
         self.step_count = int(state["step"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        self.graphs = None
 
 
 def optimizer_factory(cfgs, model: nn.Module, steps_per_epoch: int) -> Optimizer:
@@ -110,7 +143,13 @@ def optimizer_factory(cfgs, model: nn.Module, steps_per_epoch: int) -> Optimizer
     weights, biases = param_groups(model)
     groups = [{"params": weights, "weight_decay": float(cfgs.weight_decay)},
               {"params": biases, "weight_decay": float(getattr(cfgs, "bias_decay", 0.0))}]
-    if cfgs.optimizer == "adam":
+    params = list(model.parameters())
+    if cfgs.optimizer == "adam" and params and all(p.is_cuda for p in params):
+        lr = torch.tensor(schedule(0), dtype=torch.float32, device=params[0].device)
+        opt = torch.optim.Adam(groups, lr=lr, eps=1e-7, capturable=True)
+        # its eager steps (the first of each step shape) are meant: no warning
+        opt._warned_capturable_if_run_uncaptured = True
+    elif cfgs.optimizer == "adam":
         opt = torch.optim.Adam(groups, lr=schedule(0), eps=1e-7)
     elif cfgs.optimizer == "sgd":
         opt = torch.optim.SGD(groups, lr=schedule(0),

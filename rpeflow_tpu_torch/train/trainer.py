@@ -49,6 +49,7 @@ from .checkpoint import load_weights, restore_checkpoint, save_checkpoint
 from .factory import dataset_factory, model_factory
 from .optim import optimizer_factory
 from .precision import use_f32
+from . import graph
 from .state import eval_step, train_step
 
 BATCH_KEYS = ("images", "pcs", "event_voxel", "intrinsics", "flow_2d", "flow_3d")
@@ -226,6 +227,7 @@ class Trainer:
         if prof is not None:  # the window reaches past the epoch's last step
             record_spans(False)
             prof.stop()
+        logging.info("Epoch %d: train steps so far %s", self.curr_epoch, graph.STEPS)
 
     def _validation_batches(self):
         """``(global batch size, the batch this rank evaluates)`` for each

@@ -158,7 +158,9 @@ def step(dev) -> None:
     from chip_smoke import N_SAMPLES, SEED, TRAIN, make_batch, model_cfg, training_cfg
     from rpeflow_tpu_torch.model import RPEFlow, seeded_init_
     from rpeflow_tpu_torch.train.optim import optimizer_factory
-    from rpeflow_tpu_torch.train.state import train_step
+    # eager steps: a replay of the step's CUDA graph runs the kernels but
+    # not the wrapped functions, so their ranges would hold no launch
+    from rpeflow_tpu_torch.train.state import eager_train_step as train_step
 
     fn_cls = correlation._Correlation2D
     fwd, bwd = fn_cls.forward, fn_cls.backward
